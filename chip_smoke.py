@@ -8,10 +8,16 @@ Run from the repository root, with one CUDA card visible:
 It builds the CUDA kernels from `tpu_splat_torch/csrc/`, holds every kernel
 variant against its plain PyTorch version, serves `render_fast` at
 1088x1920 on a 1M-Gaussian cloud, and renders the trained snapshot in
-`artifacts/` at its own size and tiled out to 1M surfels. Each phase
-prints one line; every failed check raises, so the exit code is not 0. Per-variant details go to chiprun_out/chip_smoke.json.
-The last three lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi reports them, and the result line.
+`artifacts/` at its own size and tiled out to 1M surfels. Phase 6 drives the
+training step (`make_train_step`, production switches, the ISP on): the
+three backward kernels against their plain versions on inputs captured
+inside a small step's autograd Functions, a small step on the card against
+the CPU run, then 1 + 4 steps at 1088x1920 on 1M Gaussians, each of which
+must launch all four kernels. Each phase prints one line; every failed
+check raises, so the exit code is not 0. Details go to
+chiprun_out/chip_smoke.json. The last three lines are the kernels' JSON
+record (launches over the 4 timed training steps), the card's name and
+power limit as nvidia-smi reports them, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits with a non-zero code and prints no result.
@@ -64,6 +70,24 @@ PEAK_F32_PER_S = 67e12
 # reciprocal (4), rho3d (6), the clamp/max/exp (4), depth (2), accept (2) --
 # accepted pairs add the transmittance and accumulation work on top
 ALPHA_TEST_OPS = 40
+# f32 operations of one contributing pair in the backward's reverse step,
+# beside its alpha test: log1p/exp and w (4), what (16), B and dL/da (7),
+# the branch routing (6), the 26 per-pair field gradients (~27) and their
+# share of the per-instance sums over the tile's pixels (26)
+BWD_CONTRIB_OPS = 86
+
+# the training path (slice 2): the trainer's cubemap, one ISP frame a view
+TRAIN_CUBEMAP = 128
+TRAIN_STEPS = N_VIEWS
+# tolerances of the backward kernels against their plain versions
+BWD_TOL = 1e-3  # each d_feats row, relative to the row's max |value|
+SEGSUM_TOL = 1e-6  # relative to the largest |sum|; both sum each run in order
+CUBEMAP_TOL = 1e-5  # relative to the largest |d_tex|; float atomics reorder sums
+# the small step on the card against the CPU (tests/test_torch_train.py)
+STEP_LOSS_TOL = 1e-5  # relative
+STEP_GRAD_TOL = 1e-2  # of each leaf's max |g|, production bf16 regroup
+TRAIN_KERNELS = ("tile_blend_forward", "tile_blend_backward", "segment_sum_ranges",
+                 "cubemap_tap_accumulate")
 
 
 def log(phase: str, **kv) -> None:
@@ -317,6 +341,165 @@ def check_frame(out, cfg, label):
     return cover, n_inst
 
 
+class Capture:
+    """Wrap the three backward kernels' wrappers for one training step and
+    keep the arguments the step hands them (the inputs captured inside the
+    autograd Functions)."""
+
+    NAMES = (("tile_blend", "tile_blend_backward"), ("segment_reduce", "segment_sum_ranges"),
+             ("cubemap_accum", "cubemap_tap_accumulate"), ("tile_blend", "regroup_grads"))
+
+    def __init__(self):
+        import importlib
+
+        self.mods = {fn: importlib.import_module(f"tpu_splat_torch.kernels.{m}")
+                     for m, fn in self.NAMES}
+        self.seen = {fn: [] for _, fn in self.NAMES}
+
+    def __enter__(self):
+        self.orig = {fn: getattr(mod, fn) for fn, mod in self.mods.items()}
+        for fn, mod in self.mods.items():
+            def keep(*args, _fn=fn, **kw):
+                self.seen[_fn].append((tuple(a.detach() if hasattr(a, "detach") else a
+                                             for a in args), kw))
+                return self.orig[_fn](*args, **kw)
+            setattr(mod, fn, keep)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, mod in self.mods.items():
+            setattr(mod, fn, self.orig[fn])
+
+
+def unpacked_rows(d, packed):
+    """d_feats -> [19, N] gradient rows, packed content unpacked."""
+    import torch
+
+    from tpu_splat_torch.kernels import tile_blend as tb
+
+    if not packed:
+        return d[:tb.F_GRAD]
+    hi, lo = tb._unpack2_bits(d[12:16].contiguous())
+    return torch.cat([d[:12], hi, lo[:3]])
+
+
+def check_backward(feats, index, fwd, ct, full, packed, tiles=None):
+    """tile_blend_backward's kernel over all tiles against its plain version
+    over `tiles` (None = all), on the columns of those tiles' used chunks:
+    each gradient row within BWD_TOL of the row's max |value|."""
+    import torch
+
+    from tpu_splat_torch.kernels import tile_blend as tb
+
+    kw = dict(full_grads=full, packed_feats=packed)
+    d_k = tb.tile_blend_backward(feats, *index, fwd, ct, **kw)
+    sel = slice(None) if tiles is None else tiles
+    d_p = tb.tile_blend_backward_plain(feats, *(x[sel] for x in index), fwd[sel], ct[sel], **kw)
+    torch.cuda.synchronize()
+    starts, counts = index[0][sel], index[1][sel]
+    used = tb._used_chunks(fwd[sel], counts)
+    cols = torch.cat([torch.arange(int(s), int(s) + int(u) * tb.CI, device=feats.device)
+                      for s, u in zip(starts.tolist(), used.tolist())] or
+                     [torch.zeros(0, dtype=torch.long, device=feats.device)])
+    a, b = unpacked_rows(d_k, packed)[:, cols], unpacked_rows(d_p, packed)[:, cols]
+    err = (a - b).abs()
+    scale = b.abs().amax(1, keepdim=True)
+    res = dict(max_abs_err=float(err.max()) if err.numel() else 0.0,
+               max_rel_err=float((err / torch.clamp(scale, min=1e-30)).max()) if err.numel() else 0.0,
+               columns=int(cols.numel()))
+    if not (bool((err <= BWD_TOL * scale).all()) and bool(torch.isfinite(d_k).all())):
+        raise AssertionError(f"tile_blend_backward disagrees with its plain version: {res} {kw}")
+    return res
+
+
+def check_segsum(rows, starts, ends):
+    from tpu_splat_torch.kernels import segment_reduce as sr
+
+    got = sr.segment_sum_ranges(rows, starts, ends)
+    want = sr.segment_sum_ranges_plain(rows, starts, ends)
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not err <= SEGSUM_TOL * float(want.abs().max()):
+        raise AssertionError(f"segment_sum_ranges disagrees with its plain version: {err}")
+    return dict(max_abs_err=err, segments=int(starts.numel()), rows=int(rows.shape[0]))
+
+
+def check_cubemap(args, kw):
+    from tpu_splat_torch.kernels import cubemap_accum as ca
+
+    got = ca.cubemap_tap_accumulate(*args, **kw)
+    want = ca.cubemap_tap_accumulate_plain(*args, **kw)
+    err = float((got - want).abs().max())
+    if not err <= CUBEMAP_TOL * float(want.abs().max()):
+        raise AssertionError(f"cubemap_tap_accumulate disagrees with its plain version: {err}")
+    return dict(max_abs_err=err, pixels=int(args[0].shape[0]), texels=int(got.shape[0]))
+
+
+def check_captured(cap, tiles=None, label=""):
+    """Every captured kernel input of one step against the plain versions."""
+    (bargs, bkw), = cap.seen["tile_blend_backward"]
+    feats, index, fwd, ct = bargs[0], bargs[1:5], bargs[5], bargs[6]
+    res = {"tile_blend_backward": check_backward(feats, index, fwd, ct, bkw["full_grads"],
+                                                 bkw["packed_feats"], tiles)}
+    (sargs, _), = cap.seen["segment_sum_ranges"]
+    res["segment_sum_ranges"] = check_segsum(*sargs)
+    (cargs, ckw), = cap.seen["cubemap_tap_accumulate"]
+    res["cubemap_tap_accumulate"] = check_cubemap(cargs, ckw)
+    log(f"6 kernels vs plain: {label}",
+        **{k: f"{v['max_abs_err']:.3g}" for k, v in res.items()},
+        bwd_rel=f"{res['tile_blend_backward']['max_rel_err']:.3g}")
+    return res
+
+
+def scatter_regroup(d_feats, group_key, rank_of, seg_start, seg_end, bf16_pack, packed_feats):
+    """The regroup of a packed slab's gradients (tile_blend.regroup_grads)
+    without its sort: the same bf16-pair rows added per depth rank by one
+    atomic index_add_, then un-ranked. Timed beside the sort-plus-segment-
+    sum design; the port does not use it."""
+    import torch
+
+    from tpu_splat_torch.kernels import tile_blend as tb
+
+    assert packed_feats
+    words = [tb._pack2_bits(d_feats[2 * k], d_feats[2 * k + 1]) for k in range(6)]
+    hi, lo = tb._unpack2_bits(torch.stack(words + [d_feats[12 + k] for k in range(4)]))
+    geo = torch.stack([hi[:6], lo[:6]], dim=1).reshape(12, -1)
+    rows = torch.cat([geo, hi[6:10], lo[6:9]])  # [19, N]
+    P_ = rank_of.shape[0]
+    out = torch.zeros((P_ + 1, rows.shape[0]), dtype=torch.float32, device=rows.device)
+    out.index_add_(0, group_key.long(), rows.T)  # invalid slots carry rank P
+    return out[:P_][rank_of.long()]
+
+
+def train_start(state, n_frames):
+    """A fresh TrainState in the deferred-reflection stage (the env pass and
+    its backward run), and the trainer's step for `cfg`."""
+    from tpu_splat_torch.config import OptimizationParams
+    from tpu_splat_torch.isp.ppisp import ISPConfig
+    from tpu_splat_torch.train.step import TrainState
+
+    opt = OptimizationParams()
+    ts = TrainState.create(state, opt, num_frames=n_frames)
+    ts.step = opt.init_until_iter
+    isp = ISPConfig(controller_activation_ratio=(opt.iterations - 5000) / opt.iterations)
+    return opt, ts, isp
+
+
+def bwd_bound(feats, index, fwd, packed, tested, contributing):
+    """(bytes, ops) the backward must move and do at these inputs: the used
+    chunks' slab columns read and their gradients written, fwd_px and ct_px
+    read once; the alpha test of every pair up to its pixel's n_contrib and
+    the reverse step of every contributing one."""
+    import torch
+
+    from tpu_splat_torch.kernels import tile_blend as tb
+
+    used = tb._used_chunks(fwd, index[1])
+    cols = int(torch.minimum(index[1].long(), used.long() * tb.CI).sum())
+    f_io = tb.F_IN_PACKED if packed else tb.F_PAD
+    n_bytes = 2 * cols * f_io * 4 + 2 * fwd.numel() * 4 + 5 * index[0].numel() * 4
+    return n_bytes, ALPHA_TEST_OPS * tested + BWD_CONTRIB_OPS * contributing
+
+
 def main() -> int:
     import torch
 
@@ -427,6 +610,7 @@ def main() -> int:
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    fwd_k_ms, fwd_plain_ms, fwd_bound_ms, fwd_bound_by = k_ms, plain_ms, bound_ms, bound_by
     log("3 kernel time", ms=f"{k_ms:.4f}", full_shape_ms=f"{full_ms:.4f}",
         plain_ms=f"{plain_ms:.1f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         bytes=bytes_moved, alpha_tests=pairs, instances=n_valid, tiles=n_tiles,
@@ -519,19 +703,249 @@ def main() -> int:
     detail["trained_tiled"]["gaussians"] = n_big
     del big
 
+
+    # 6. the training step (slice 2's main path): make_train_step with the
+    # production switches and the ISP on, in the deferred-reflection stage
+    from tpu_splat_torch.kernels import cubemap_accum as ca
+    from tpu_splat_torch.kernels import segment_reduce as sr
+    from tpu_splat_torch.train.step import make_train_step
+
+    bg_train = torch.zeros(3, device=dev)
+
+    def small_step(cfg_s, device, capture=False):
+        st = small_scene(SMALL_N, 3, device)
+        opt, ts, isp = train_start(st, 2)
+        cam = orbit_camera(SMALL_H, SMALL_W, radius=4.0, azimuth=0.5, elevation=0.2,
+                           device=device)
+        gt = torch.tensor(np.random.default_rng(1).uniform(0, 1, (SMALL_H, SMALL_W, 3))
+                          .astype(np.float32), device=device)
+        step = make_train_step(opt, cfg_s, 1.0, isp_cfg=isp)
+        if not capture:
+            return step(ts, cam, gt, torch.zeros(3, device=device), frame_idx=1)[1], None
+        with Capture() as cap:
+            aux = step(ts, cam, gt, torch.zeros(3, device=device), frame_idx=1)[1]
+        return aux, cap
+
+    # 6a. each backward kernel against its plain version on the inputs a
+    # small training step hands it (production and exact switches), and the
+    # four static variants of tile_blend_backward
+    detail["train_small"] = {}
+    kernel_errs = {k: [] for k in TRAIN_KERNELS[1:]}
+    caps = {}
+    for name, over in (("production", {}), ("exact", dict(bf16_grads=False, bf16_feats=False))):
+        aux, cap = small_step(production_config(**SMALL, **over), dev, capture=True)
+        caps[name] = cap
+        res = check_captured(cap, label=f"small {name} step")
+        detail["train_small"][name] = res
+        for k, v in res.items():
+            kernel_errs[k].append(v["max_abs_err"])
+    g = torch.Generator().manual_seed(0)
+    variants = {}
+    for name, packed in (("production", True), ("exact", False)):
+        (bargs, _), = caps[name].seen["tile_blend_backward"]
+        feats, index = bargs[0], bargs[1:5]
+        for full in (True, False):
+            fwd, _ = tb.tile_blend_forward(feats, *index, train_shape=not full, packed_feats=packed)
+            ct = torch.randn(fwd.shape, generator=g).to(dev)
+            r = check_backward(feats, index, fwd, ct, full, packed)
+            variants[f"full={int(full)},packed={int(packed)}"] = r
+            kernel_errs["tile_blend_backward"].append(r["max_abs_err"])
+    log("6 tile_blend_backward variants", **{k: f"{v['max_abs_err']:.3g}/{v['max_rel_err']:.3g}"
+                                            for k, v in variants.items()})
+    detail["train_small"]["bwd_variants"] = variants
+    del caps
+
+    # 6b. the small production step on the card against the CPU run
+    a, _ = small_step(production_config(**SMALL), "cpu")
+    b, _ = small_step(production_config(**SMALL), dev)
+    cmp = {}
+    for f in ("loss", "l1", "ssim", "normal_loss"):
+        va, vb = float(getattr(a, f)), float(getattr(b, f))
+        cmp[f] = abs(va - vb) / max(abs(va), 1e-30)
+        if cmp[f] > STEP_LOSS_TOL:
+            raise AssertionError(f"small step {f}: cpu {va} card {vb}")
+    diff = (b.render.cpu() - a.render).abs().amax(-1)
+    cmp["render_px_over_tol"] = int((diff > TOL).sum())
+    if cmp["render_px_over_tol"] > FLIPS_PER_4096 * diff.numel() / 4096:
+        raise AssertionError(f"small step render: {cmp}")
+    over_1e3 = {}
+    for k, ga in a.grads.items():
+        gb = b.grads[k].cpu()
+        scale = float(ga.abs().max())
+        err = (gb - ga).abs()
+        if float(err.max()) > STEP_GRAD_TOL * scale + 1e-30:
+            raise AssertionError(f"small step gradient {k}: {float(err.max())} of {scale}")
+        over_1e3[k] = int((err > 1e-3 * scale).sum())
+    cmp["grad_entries_over_1e-3"] = over_1e3
+    log("6 train step card vs cpu", **{k: (f"{v:.3g}" if isinstance(v, float) else
+                                          json.dumps(v).replace(" ", "")) for k, v in cmp.items()})
+    detail["train_card_vs_cpu"] = cmp
+    del a, b
+
+    # 6c. the training path at full width: the bench cloud with the
+    # trainer's 128^2 cubemap, 1088x1920, production switches, the ISP with
+    # one frame per view; random uniform ground truth (bench.py:235-236)
+    del state
+    tstate = build_state(N_GAUSS, CAPACITY, cubemap=TRAIN_CUBEMAP, device=dev)
+    opt, ts, isp = train_start(tstate, N_VIEWS)
+    step = make_train_step(opt, cfg, 1.0, isp_cfg=isp)
+    gts = [torch.rand((H, W, 3), generator=torch.Generator().manual_seed(1 + k)).to(dev)
+           for k in range(N_VIEWS)]
+    before = {k: v.clone() for k, v in ts.gaussians.param_pytree().items()}
+    with Capture() as cap:  # warm-up step, its kernel inputs captured
+        ts, aux = step(ts, views[0], gts[0], bg_train, frame_idx=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, per_step = [], []
+    for k in range(TRAIN_STEPS):
+        LAUNCHES.clear()
+        ms, (ts, aux) = wall_ms(lambda: step(ts, views[k], gts[k], bg_train, frame_idx=k))
+        per_step.append(dict(LAUNCHES))
+        losses = {f: float(getattr(aux, f)) for f in ("loss", "l1", "ssim", "normal_loss")}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train step {k}: non-finite loss {losses}")
+        missing = [n for n in TRAIN_KERNELS if per_step[-1].get(n, 0) < 1]
+        if missing:
+            raise AssertionError(f"train step {k}: kernels not launched: {missing}")
+        steps.append(dict(wall_ms=ms, instances=int(aux.num_instances),
+                          pad_overflow=int(aux.pad_overflow), **losses))
+        log("6 train", step=k, **{f: (f"{v:.4f}" if isinstance(v, float) else v)
+                                   for f, v in steps[-1].items()},
+            launches=json.dumps(per_step[-1]).replace(" ", ""))
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    train_launches = {n: sum(p.get(n, 0) for p in per_step) for n in TRAIN_KERNELS}
+    after = ts.gaussians.param_pytree()
+    # every leaf with a gradient moved (the env fail value has none: no
+    # pixel reflects a zero direction)
+    unchanged = [k for k in before if bool(torch.equal(before[k], after[k]))
+                 and bool(aux.grads[k].abs().sum() > 0)]
+    if unchanged:
+        raise AssertionError(f"leaves not updated by the steps: {unchanged}")
+    st_ = ts.stats
+    if not (float(st_.denom.sum()) > 0 and float(st_.grad_accum.sum()) > 0
+            and float(st_.accum_w.sum()) > 0 and float(st_.max_radii.max()) > 0):
+        raise AssertionError("densify stats did not accumulate")
+    log("6 train", steps=TRAIN_STEPS, size=f"{H}x{W}", gaussians=N_GAUSS,
+        peak_mem_gib=f"{peak_train:.2f}", launches=json.dumps(train_launches).replace(" ", ""),
+        visible=int((st_.denom > 0).sum()))
+    # where one step's time goes: CUDA events around its stages (view 0)
+    runs = []
+    for _ in range(3):
+        with record_stages() as st_ms:
+            total, (ts, aux) = wall_ms(lambda: step(ts, views[0], gts[0], bg_train, frame_idx=0))
+        runs.append(dict(st_ms, step_wall=total))
+    train_stages = {k: float(np.median([r.get(k, 0.0) for r in runs])) for k in runs[-1]}
+    log("6 train stages", **{k: f"{v:.2f}" for k, v in train_stages.items()})
+    detail["train"] = dict(steps=steps, launches_per_step=per_step, peak_mem_gib=peak_train,
+                           stages_ms=train_stages)
+
+    # the backward kernels at full width, on the warm-up step's inputs:
+    # against their plain versions (tile_blend_backward on sampled tiles),
+    # and timed beside their plain versions, a library call and their bound
+    (bargs, bkw), = cap.seen["tile_blend_backward"]
+    feats, index, fwd, ct = bargs[0], bargs[1:5], bargs[5], bargs[6]
+    counts_t = index[1]
+    others = torch.randperm(counts_t.numel(), generator=g)[: N_SAMPLED_TILES - 1].to(dev)
+    tiles = torch.unique(torch.cat([torch.argmax(counts_t)[None], others]))
+    full_res = check_captured(cap, tiles=tiles, label="full width, sampled tiles")
+    detail["train_full_width_check"] = full_res
+    for k, v in full_res.items():
+        kernel_errs[k].append(v["max_abs_err"])
+    timing = {}
+    bkw_ = dict(full_grads=bkw["full_grads"], packed_feats=bkw["packed_feats"])
+    k_ms = cuda_ms(lambda: tb.tile_blend_backward(feats, *index, fwd, ct, **bkw_), 5)
+    p_ms, (_, tested, contributing) = wall_ms(lambda: tb.tile_blend_backward_plain(
+        feats, *index, fwd, ct, return_pairs=True, **bkw_))
+    nb, nops = bwd_bound(feats, index, fwd, bkw["packed_feats"], tested, contributing)
+    timing["tile_blend_backward"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bytes=nb,
+                                         ops=nops, tested_pairs=tested,
+                                         contributing_pairs=contributing)
+    (sargs, _), = cap.seen["segment_sum_ranges"]
+    rows, s_, e_ = sargs
+    k_ms = cuda_ms(lambda: sr.segment_sum_ranges(rows, s_, e_), 10)
+    p_ms, _ = wall_ms(lambda: sr.segment_sum_ranges_plain(rows, s_, e_))
+    covered = int((e_.long() - s_.long()).clamp(min=0).sum())
+    lib_ms = None
+    if bool((s_[1:] == e_[:-1]).all()):  # gap-free runs: one segment_reduce
+        data = rows[:, int(s_[0]):int(e_[-1])].T.contiguous()
+        lengths = (e_ - s_).long()
+        lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths), 10)
+    timing["segment_sum_ranges"] = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+        bytes=rows.shape[0] * (covered + s_.numel()) * 4 + 2 * s_.numel() * 4, ops=0)
+    (cargs, ckw), = cap.seen["cubemap_tap_accumulate"]
+    k_ms = cuda_ms(lambda: ca.cubemap_tap_accumulate(*cargs, **ckw), 10)
+    p_ms, _ = wall_ms(lambda: ca.cubemap_tap_accumulate_plain(*cargs, **ckw))
+    idx, w = ca.tap_rows(*cargs[1:], L=ckw["L"])
+    vals = (w[..., None] * cargs[0][None]).reshape(-1, ckw["C"])
+    idx = idx.reshape(-1)
+    n_texels = 6 * ckw["L"] ** 2
+
+    def lib():
+        torch.zeros((n_texels, ckw["C"]), device=dev).index_add_(0, idx, vals)
+
+    # a pixel's record: g, the separable indices and weights (4 + 3 words)
+    # and, when given, the generic taps (12 words)
+    n_pix, n_taps = cargs[0].shape[0], w.shape[0]
+    words = ckw["C"] + 7 + (12 if cargs[3] is not None else 0)
+    timing["cubemap_tap_accumulate"] = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=cuda_ms(lib, 10),
+        bytes=n_pix * words * 4 + n_texels * ckw["C"] * 4,
+        ops=n_pix * n_taps * ckw["C"] * 2, taps=n_taps)
+    for k, v in timing.items():
+        t_b, t_o = v["bytes"] / PEAK_BYTES_PER_S * 1e3, v["ops"] / PEAK_F32_PER_S * 1e3
+        v.update(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+        log("6 kernel time", kernel=k, **{f: (f"{x:.4f}" if isinstance(x, float) else x)
+                                         for f, x in v.items()})
+    detail["train_kernel_time"] = timing
+    # does Hopper keep the sort-plus-segment-sum regroup? Against one atomic
+    # index_add_ of the same rows per depth rank, on the warm-up step's
+    # regroup inputs
+    (rargs, _), = cap.seen["regroup_grads"]
+    want = tb.regroup_grads(*rargs)[:, :tb.F_GRAD]
+    got = scatter_regroup(*rargs)
+    reg_err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    regroup = dict(sort_segsum_ms=cuda_ms(lambda: tb.regroup_grads(*rargs), 10),
+                   index_add_ms=cuda_ms(lambda: scatter_regroup(*rargs), 10),
+                   rel_diff=reg_err, instances=int(rargs[0].shape[1]))
+    log("6 regroup", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                        for k, v in regroup.items()})
+    detail["train_regroup"] = regroup
+    del cap, feats, fwd, ct, rows, vals, rargs, want, got
+
+    sources = {
+        "tile_blend_backward": ("tpu_splat_torch/csrc/tile_blend_bwd.cu",
+                                "tpu_splat/kernels/tile_blend.py:1347"),
+        "segment_sum_ranges": ("tpu_splat_torch/csrc/segment_sum_ranges.cu",
+                               "tpu_splat/kernels/segment_reduce.py:229"),
+        "cubemap_tap_accumulate": ("tpu_splat_torch/csrc/cubemap_accum.cu",
+                                   "tpu_splat/kernels/cubemap_accum.py:132"),
+    }
     record = {"kernels": [{
         "name": "tile_blend_forward",
         "route": "cuda",
         "source": "tpu_splat_torch/csrc/tile_blend_fwd.cu",
         "replaces": "tpu_splat/kernels/tile_blend.py:670",
-        "launches": launches,
+        "launches": train_launches["tile_blend_forward"],
         "max_abs_err": max(errs),
-        "ms": k_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": fwd_k_ms,
+        "plain_ms": fwd_plain_ms,
+        "bound_ms": fwd_bound_ms,
+        "bound_by": fwd_bound_by,
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": sources[name][0],
+        "replaces": sources[name][1],
+        "launches": train_launches[name],
+        "max_abs_err": max(kernel_errs[name]),
+        "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name in TRAIN_KERNELS[1:]]}
     detail["record"] = record
     detail["seconds"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -1,5 +1,5 @@
-"""tpu_splat_torch on its own: import isolation, device selection, and the
-CUDA kernel against its plain version on the card.
+"""tpu_splat_torch on its own: import isolation, device selection, input
+checks, and each CUDA kernel against its plain version on the card.
 
 This file imports neither JAX nor the JAX package, so on a machine with a
 CUDA card and no JAX the card tests run with
@@ -14,7 +14,14 @@ tests/test_torch_kernel.py holds them; n_contrib and the median rank exact
 except at the T < 1e-4 knife edge (at most 8 per 4096 px). Both versions
 derive the per-instance coefficients in double and round the edge-on
 sensitive fields (p2, the depth numerator) alike (csrc/tile_blend_fwd.cu);
-elsewhere the kernel may fuse multiply-adds.
+elsewhere the kernel may fuse multiply-adds. tile_blend_backward: each
+d_feats row within 1e-3 of the row's max |value| (the kernel sums its
+suffixes and pixel reductions in another order; packed content compared
+unpacked). segment_sum_ranges: 1e-6 of the largest |sum| (both sum each
+run in order). cubemap_tap_accumulate: 1e-5 of the largest |d_tex| (float
+atomics add in run-dependent order). The training step on the card against
+the CPU run: losses 1e-5 relative, every gradient 1e-2 of its leaf's max
+(the production bf16 regroup; tests/test_torch_train.py).
 """
 import itertools
 import os
@@ -26,7 +33,11 @@ import pytest
 import torch
 
 from tpu_splat_torch.data.synthetic import orbit_camera, random_scene
-from tpu_splat_torch.kernels import LAUNCHES
+from tpu_splat_torch.config import OptimizationParams
+from tpu_splat_torch.isp.ppisp import ISPConfig
+from tpu_splat_torch.kernels import LAUNCHES, build
+from tpu_splat_torch.kernels import cubemap_accum as ca
+from tpu_splat_torch.kernels import segment_reduce as sr
 from tpu_splat_torch.kernels import tile_blend as tb
 from tpu_splat_torch.model.convert import camera_from_numpy, state_from_numpy
 from tpu_splat_torch.raster.binning import bin_gaussians
@@ -34,6 +45,7 @@ from tpu_splat_torch.raster.blend import tile_origins
 from tpu_splat_torch.raster.config import RasterConfig, production_config
 from tpu_splat_torch.raster.preprocess import preprocess
 from tpu_splat_torch.renderer import render_fast
+from tpu_splat_torch.train.step import TrainState, make_train_step
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 H, W = 64, 96
@@ -67,7 +79,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpu_splat'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 16 else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 34 else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -166,3 +178,165 @@ def test_render_fast_on_card_matches_cpu(name):
         # the card's matmuls round the homography apart from the CPU's; the
         # T < 1e-4 knife edge may then flip a few pixels (PARITY.md D4)
         assert int((diff > TOL).sum()) <= 8 * diff.numel() / 4096, (f, float(diff.max()))
+
+
+def test_new_wrappers_check_their_inputs():
+    f32, i32 = torch.float32, torch.int32
+    rows = torch.zeros((19, 64))
+    se = torch.zeros(4, dtype=i32)
+    with pytest.raises(ValueError, match="rows_T"):
+        sr.segment_sum_ranges(rows.double(), se, se)
+    with pytest.raises(ValueError, match="starts"):
+        sr.segment_sum_ranges(rows, se.long(), se)
+    with pytest.raises(ValueError, match="ends"):
+        sr.segment_sum_ranges(rows, se, torch.zeros(3, dtype=i32))
+    assert sr.segment_sum_ranges(rows, se, se).shape == (19, 4)
+
+    feats = torch.zeros((tb.F_PAD, 256))
+    idx = [torch.zeros(2, dtype=i32) for _ in range(4)]
+    px = torch.zeros((2, 16, tb.L))
+    with pytest.raises(ValueError, match="feats"):
+        tb.tile_blend_backward(feats, *idx, px, px, packed_feats=True)
+    with pytest.raises(ValueError, match="fwd_px"):
+        tb.tile_blend_backward(feats, *idx, px[:1], px)
+    with pytest.raises(ValueError, match="ct_px"):
+        tb.tile_blend_backward(feats, *idx, px, px.double())
+    assert float(tb.tile_blend_backward(feats, *idx, px, px).abs().max()) == 0.0
+
+    n, L, C = 8, 4, 3
+    g = torch.zeros((n, C))
+    ints = [torch.zeros((4, n), dtype=i32)] * 2
+    tw = torch.zeros((4, n))
+    sep_i = [torch.zeros(n, dtype=i32)] * 4
+    sep_f = [torch.zeros(n)] * 3
+    with pytest.raises(ValueError, match="g must"):
+        ca.cubemap_tap_accumulate(g.double(), *ints, tw, *sep_i, *sep_f, L=L, C=C)
+    with pytest.raises(ValueError, match="C must"):
+        ca.cubemap_tap_accumulate(torch.zeros((n, 9)), *ints, tw, *sep_i, *sep_f, L=L, C=9)
+    with pytest.raises(ValueError, match="tap_w"):
+        ca.cubemap_tap_accumulate(g, *ints, tw[:, :3], *sep_i, *sep_f, L=L, C=C)
+    with pytest.raises(ValueError, match="sep_r0"):
+        ca.cubemap_tap_accumulate(g, *ints, tw, sep_i[0].float(), *sep_i[1:], *sep_f, L=L, C=C)
+    with pytest.raises(ValueError, match="all given or all None"):
+        ca.cubemap_tap_accumulate(g, None, None, tw, *sep_i, *sep_f, L=L, C=C)
+    assert ca.cubemap_tap_accumulate(g, *ints, tw, *sep_i, *sep_f, L=L, C=C).shape == (6 * L * L, C)
+    assert ca.cubemap_tap_accumulate(g, None, None, None, *sep_i, *sep_f,
+                                     L=L, C=C).shape == (6 * L * L, C)
+
+
+@pytest.mark.gpu
+def test_failed_build_raises_and_does_not_fall_back(monkeypatch):
+    """A CUDA tensor whose kernel cannot be built raises; the plain version
+    never stands in for it."""
+    _need_card()
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(build, "load", broken)
+    before = dict(LAUNCHES)
+    dev = "cuda"
+    i32 = torch.int32
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sr.segment_sum_ranges(torch.zeros((19, 64), device=dev),
+                              torch.zeros(4, dtype=i32, device=dev),
+                              torch.zeros(4, dtype=i32, device=dev))
+    idx = [torch.zeros(2, dtype=i32, device=dev) for _ in range(4)]
+    px = torch.zeros((2, 16, tb.L), device=dev)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tb.tile_blend_forward(torch.zeros((tb.F_PAD, 256), device=dev), *idx)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tb.tile_blend_backward(torch.zeros((tb.F_PAD, 256), device=dev), *idx, px, px)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        n = 8
+        ca.cubemap_tap_accumulate(
+            torch.zeros((n, 3), device=dev), *[torch.zeros((4, n), dtype=i32, device=dev)] * 2,
+            torch.zeros((4, n), device=dev), *[torch.zeros(n, dtype=i32, device=dev)] * 4,
+            *[torch.zeros(n, device=dev)] * 3, L=4, C=3)
+    assert dict(LAUNCHES) == before
+
+
+def _unpacked_rows(d, packed):
+    if not packed:
+        return d[:tb.F_GRAD]
+    hi, lo = tb._unpack2_bits(d[12:16].contiguous())
+    return torch.cat([d[:12], hi, lo[:3]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opacity", [None, 4.6], ids=["random", "opaque"])
+def test_tile_blend_backward_kernel_matches_plain_on_card(opacity):
+    _need_card()
+    feats, index = _kernel_inputs(_scene(300, 5, opacity), "cuda")
+    g = torch.Generator().manual_seed(0)
+    for full, packed in itertools.product((True, False), repeat=2):
+        fwd, _ = tb.tile_blend_forward(feats[packed], *index, train_shape=not full,
+                                       packed_feats=packed)
+        ct = torch.randn(fwd.shape, generator=g).to("cuda")
+        before = LAUNCHES["tile_blend_backward"]
+        d_k = tb.tile_blend_backward(feats[packed], *index, fwd, ct, full_grads=full,
+                                     packed_feats=packed)
+        assert LAUNCHES["tile_blend_backward"] == before + 1
+        d_p = tb.tile_blend_backward_plain(feats[packed], *index, fwd, ct, full_grads=full,
+                                           packed_feats=packed)
+        a, b = _unpacked_rows(d_k, packed).cpu(), _unpacked_rows(d_p, packed).cpu()
+        scale = b.abs().amax(1, keepdim=True)
+        assert bool(((a - b).abs() <= 1e-3 * scale).all()), (full, packed)
+
+
+@pytest.mark.gpu
+def test_segment_sum_and_cubemap_kernels_match_plain_on_card():
+    _need_card()
+    rng = np.random.default_rng(2)
+    F, N, P_ = 19, 50_000, 12_000
+    lens = rng.integers(0, 9, P_)
+    lens[rng.uniform(size=P_) < 0.2] = 0
+    starts = np.cumsum(rng.integers(0, 3, P_) + np.concatenate([[0], lens[:-1]]))
+    ends = starts + lens
+    rows = torch.tensor(rng.normal(size=(F, N)).astype(np.float32), device="cuda")
+    s, e = (torch.tensor(x.astype(np.int32), device="cuda") for x in (starts, ends))
+    got = sr.segment_sum_ranges(rows, s, e)
+    want = sr.segment_sum_ranges_plain(rows, s, e)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+    L, C, n = 10, 3, 20_000
+    r0 = rng.integers(0, 6 * L - 1, n)
+    c0 = rng.integers(0, L - 1, n)
+    dev = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt, device="cuda")
+    i32, f32 = torch.int32, torch.float32
+    m = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    tap_w = rng.uniform(size=(4, n)).astype(np.float32) * (1 - m)
+    args = (dev(rng.normal(size=(n, C)), f32),
+            dev(rng.integers(0, 6 * L, (4, n)), i32), dev(rng.integers(0, L, (4, n)), i32),
+            dev(tap_w, f32), dev(r0, i32), dev(r0 + 1, i32), dev(c0, i32), dev(c0 + 1, i32),
+            dev(rng.uniform(size=n), f32), dev(rng.uniform(size=n), f32), dev(m, f32))
+    # with the generic taps, and separable only (the sampler's call)
+    sep_only = (args[0], None, None, None) + args[4:10] + (torch.ones_like(args[10]),)
+    for a in (args, sep_only):
+        got = ca.cubemap_tap_accumulate(*a, L=L, C=C)
+        want = ca.cubemap_tap_accumulate_plain(*a, L=L, C=C)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    _need_card()
+    cfg = production_config(**KW)
+    d = _scene(300, 6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = state_from_numpy(d, device=dev)
+        ts = TrainState.create(st, OptimizationParams(), num_frames=2)
+        ts.step = 600  # the deferred-reflection stage
+        cam = orbit_camera(H, W, radius=4.0, azimuth=0.5, elevation=0.2, device=dev)
+        gt = torch.tensor(np.random.default_rng(1).uniform(0, 1, (H, W, 3)).astype(np.float32),
+                          device=dev)
+        step = make_train_step(OptimizationParams(), cfg, 1.0, isp_cfg=ISPConfig())
+        out[dev] = step(ts, cam, gt, torch.tensor([0.1, 0.2, 0.3], device=dev), frame_idx=1)[1]
+    a, b = out["cpu"], out["cuda"]
+    for f in ("loss", "l1", "ssim", "normal_loss"):
+        assert abs(float(getattr(a, f)) - float(getattr(b, f))) <= 1e-5 * abs(float(getattr(a, f))), f
+    for k, ga in a.grads.items():
+        gb = b.grads[k].cpu()
+        scale = float(ga.abs().max())
+        assert float((gb - ga).abs().max()) <= 1e-2 * scale + 1e-30, k

@@ -4,9 +4,12 @@ The package mirrors `tpu_splat/`'s layout and module names so each port
 module sits where its JAX counterpart does. It imports `torch` and numpy
 only; `tpu_splat/` stays the unchanged reference the port is tested against.
 
-Ported so far: the serving path (`renderer.render_fast` with
-`collect_weights=False`, surfel mode, one device) down to the tile-blend
-forward kernel (`csrc/tile_blend_fwd.cu`). Entry points default to
+Ported so far: the serving path (`renderer.render_fast`) and the
+single-device training step (`train.step.make_train_step` with
+`TrainState.create`, production switches, the learned ISP), surfel mode,
+down to four hand-written CUDA kernels under `csrc/`: the tile-blend
+forward and backward, the segment sum of the gradient regroup and the
+cubemap texel-gradient accumulation. Entry points default to
 `device="cuda"` and raise when CUDA is absent unless the caller passes
 `device="cpu"`.
 """

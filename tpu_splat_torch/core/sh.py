@@ -72,8 +72,10 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 
 def sh_to_color(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """SH -> RGB clamped at 0."""
-    return torch.clamp(eval_sh(degree, sh, dirs) + 0.5, min=0.0)
+    """SH -> RGB clamped at 0. A maximum, not a clamp: at exactly 0 its
+    gradient splits 1/2 : 1/2 as `jnp.maximum`'s does."""
+    raw = eval_sh(degree, sh, dirs) + 0.5
+    return torch.maximum(raw, torch.zeros_like(raw))
 
 
 def rgb_to_sh(rgb):

@@ -314,6 +314,6 @@ extern "C" int tile_blend_fwd(const float* feats, long long n_cap,
   return (int)err;
 }
 
-extern "C" const char* tile_blend_error_string(int err) {
+extern "C" const char* tile_blend_fwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -1,11 +1,14 @@
-"""Learned cubemap environment map, forward sampling only.
+"""Learned cubemap environment map.
 
-Port of the forward half of tpu_splat/envmap/cubemap.py: dominant-axis face
-selection, the LEFT_TOP_AS_ORIGIN EdgeTable, the seamless filter baked into
-EdgeTable-padded faces, and the quad-texture gather. Texture layout
-[6, C, L, L] (face, channel, y, x), as the reference checkpoint format. The
-forward is a row gather, as in the JAX package; the texel-gradient kernel
-(cubemap_tap_accumulate) belongs to the backward and is not ported yet.
+Port of tpu_splat/envmap/cubemap.py: dominant-axis face selection, the
+LEFT_TOP_AS_ORIGIN EdgeTable, the seamless filter baked into EdgeTable-padded
+faces, and the quad-texture gather. Texture layout [6, C, L, L] (face,
+channel, y, x), as the reference checkpoint format. The forward is a row
+gather, as in the JAX package. The seamless sample is differentiable in
+texture, fail value and direction: its texel gradient goes through the
+`cubemap_tap_accumulate` kernel (kernels/cubemap_accum.py), its direction
+gradient through the tap-weight derivatives. The "bilinear" and "nearest"
+filters differentiate by autograd of their gathers.
 """
 from __future__ import annotations
 
@@ -165,11 +168,12 @@ def _w4_terms(kx, ky, vert):
     return w4, wx4, wy4
 
 
-def _sample4_quad(tex_flat, kx, ky, vert, sep_i):
+def _sample4_quad_impl(tex_flat, kx, ky, vert, sep_i, derivs: bool = True):
     """Quad-texture forward gather (`_sample4_impl(quad=True)`): the four
     bilinear taps are the 2x2 block at (x0, y0) of the padded face, read as
-    one row of an overlapping-2x2 re-layout of the texture."""
-    w4, _, _ = _w4_terms(kx, ky, vert)
+    one row of an overlapping-2x2 re-layout of the texture. Returns the
+    sample and its kx / ky derivative blends (gx, gy; None unless derivs)."""
+    w4, wx4, wy4 = _w4_terms(kx, ky, vert)
     M, C = tex_flat.shape
     L2 = int(round((M / 6) ** 0.5))
     assert 6 * L2 * L2 == M
@@ -183,7 +187,69 @@ def _sample4_quad(tex_flat, kx, ky, vert, sep_i):
     y0 = r0 - f * L2
     v4 = quad_t[((f * (L2 - 1) + y0) * (L2 - 1) + xp0).long()]  # [..., 4C]
     taps = [v4[..., t * C : (t + 1) * C] for t in range(4)]
-    return sum(w4[t][..., None] * taps[t] for t in range(4))
+    blend = lambda wt: sum(wt[t][..., None] * taps[t] for t in range(4))
+    if not derivs:
+        return blend(w4), None, None
+    return blend(w4), blend(wx4), blend(wy4)
+
+
+def _tileorder(shape):
+    """Flattener: [..., H, W] image order -> 16x32 tile-major [..., H*W], so
+    that face-edge pixels (smooth curves in reflection maps) cluster into few
+    blocks and a warp's taps stay close. The tap accumulation does not depend
+    on the order, so no inverse is needed."""
+    if len(shape) == 2 and shape[0] % 16 == 0 and shape[1] % 32 == 0:
+        H, W = shape
+        ty, tx = H // 16, W // 32
+
+        def flat(a):
+            a = a.reshape(a.shape[:-2] + (ty, 16, tx, 32)).transpose(-3, -2)
+            return a.reshape(a.shape[:-4] + (H * W,))
+
+        return flat
+    n = 1
+    for d in shape:
+        n *= d
+    return lambda a: a.reshape(a.shape[: a.dim() - len(shape)] + (n,))
+
+
+class _Sample4Quad(torch.autograd.Function):
+    """The seamless 4-tap sample (the JAX `_sample4_quad` custom VJP). The
+    forward also yields gx / gy; the backward gives the direction gradients
+    through d_kx = gx . g and d_ky = gy . g, and the texel gradient through
+    `cubemap_tap_accumulate` (every pixel separable on the padded faces)."""
+
+    @staticmethod
+    def forward(ctx, tex_flat, kx, ky, vert, sep_i, sep_m):
+        # gx / gy only when a direction gradient is wanted (not in serving)
+        derivs = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        out, gx, gy = _sample4_quad_impl(tex_flat, kx, ky, vert, sep_i, derivs)
+        ctx.save_for_backward(gx, gy, kx, ky, sep_i, sep_m)
+        ctx.n_texels = tex_flat.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from tpu_splat_torch.core.device import stage
+        from tpu_splat_torch.kernels.cubemap_accum import cubemap_tap_accumulate
+
+        gx, gy, kx, ky, sep_i, sep_m = ctx.saved_tensors
+        C = g.shape[-1]
+        d_kx = None if gx is None else torch.sum(gx * g, dim=-1)
+        d_ky = None if gy is None else torch.sum(gy * g, dim=-1)
+        L = int(round((ctx.n_texels / 6) ** 0.5))
+        flat = _tileorder(tuple(kx.shape))
+        i32 = lambda a: flat(a).to(torch.int32).contiguous()
+        r0, r1, c0, c1 = (i32(sep_i[k]) for k in range(4))
+        sm = flat(sep_m).contiguous()
+        with stage("cubemap_accumulate"):
+            d_tex = cubemap_tap_accumulate(
+                flat(g.movedim(-1, 0)).movedim(0, -1).contiguous(),
+                None, None, None,  # no generic taps: every pixel is separable
+                r0, r1, c0, c1, flat(ky).contiguous(), flat(kx).contiguous(), sm,
+                L=L, C=C,
+            )
+        return d_tex, d_kx, d_ky, None, None, None
 
 
 def _pad_faces(texture: torch.Tensor) -> torch.Tensor:
@@ -282,8 +348,9 @@ def sample_cubemap(
             xp0 = torch.clamp(x0i + 1, 0, Lp - 2)
             yp0 = torch.clamp(y0i + 1, 0, Lp - 2)
             sep_i = torch.stack([face * Lp + yp0, face * Lp + yp0 + 1, xp0, xp0 + 1])
-            out = _sample4_quad(
-                _tex_flat(padded), kx, ky, torch.zeros_like(su), sep_i
+            out = _Sample4Quad.apply(
+                _tex_flat(padded), kx, ky, torch.zeros_like(su), sep_i,
+                torch.ones_like(su),
             )
         else:
             raise ValueError(f"unknown interp {interp!r}")

@@ -97,3 +97,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, fn: str, argtypes: list, *args) -> None:
+    """Call the C launcher `fn` of `csrc/<name>.cu` (its C signature
+    declared once from `argtypes`) and raise if it reports a CUDA error.
+    Each source exports `<name>_error_string` for the message."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        es = getattr(lib, f"{name}_error_string")
+        es.argtypes = [ctypes.c_int]
+        es.restype = ctypes.c_char_p
+    err = f(*args)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg}")

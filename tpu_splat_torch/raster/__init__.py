@@ -1,13 +1,14 @@
 """Surfel rasterizer: preprocess -> bin -> blend (port of
 tpu_splat/raster/__init__.py, surfel mode on one device, aligned kernel
-path)."""
+path). Differentiable in the Gaussian attributes and the `screen_offset`
+densify probe."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from tpu_splat_torch.core.device import full_precision_matmul, stage
+from tpu_splat_torch.core.device import backward_edge, full_precision_matmul, stage
 from tpu_splat_torch.core.graphics import Camera
 from tpu_splat_torch.raster.config import RasterConfig
 from tpu_splat_torch.raster.preprocess import preprocess
@@ -66,6 +67,10 @@ def rasterize(
         scope_mask = torch.ones((P,), dtype=torch.bool, device=means3d.device)
 
     with stage("preprocess"):
+        # the preprocess VJP spans from its outputs' gradients to its inputs'
+        means3d, scales, rotations, sh, screen_offset = backward_edge(
+            "preprocess_vjp", "end", means3d, scales, rotations, sh, screen_offset
+        )
         prep = preprocess(
             means3d,
             scales,
@@ -83,6 +88,10 @@ def rasterize(
             opacity=opacity if cfg.opacity_rect else None,
             circular_rect=cfg.circular_rect,
         )
+        hom, xy, normal_view, color = backward_edge(
+            "preprocess_vjp", "start", prep.hom, prep.xy, prep.normal_view, prep.color
+        )
+        prep = prep._replace(hom=hom, xy=xy, normal_view=normal_view, color=color)
         if alive is not None:
             valid = prep.valid & alive
             prep = prep._replace(
@@ -107,6 +116,7 @@ def rasterize(
         H,
         W,
         train_shape=cfg.grad_channels == "train",
+        bf16_grads=cfg.bf16_grads,
         bf16_feats=cfg.bf16_feats,
         collect_weights=collect_weights,
     )

@@ -1,8 +1,8 @@
-"""Tile blending through the tile kernel, and image assembly.
+"""Tile blending through the tile kernel pair, and image assembly.
 
 Port of the kernel path of tpu_splat/raster/blend.py (`blend_pallas`,
-`assemble_image`, `tile_origins`, `_tiles_to_image`). The XLA scan blend of
-the JAX package is not ported.
+differentiable, `assemble_image`, `tile_origins`, `_tiles_to_image`). The
+XLA scan blend of the JAX package is not ported.
 """
 from __future__ import annotations
 
@@ -105,26 +105,32 @@ def blend_kernel_path(
     height: int,
     width: int,
     train_shape: bool = False,
+    bf16_grads: bool = False,
     bf16_feats: bool = False,
     collect_weights: bool = True,
 ) -> BlendOutput:
-    """Forward blend through the tile kernel (counterpart of the JAX
-    `blend_pallas`): pack the aligned instance slab, run
-    `tile_blend_forward`, assemble the image, and (collect_weights) reduce
-    the per-instance max weights to per-Gaussian ones."""
+    """Blend through the tile kernel pair (counterpart of the JAX
+    `blend_pallas`): pack the aligned instance slab, run the differentiable
+    sweep (`tile_blend.blend_kernel`), assemble the image, and
+    (collect_weights) reduce the per-instance max weights to per-Gaussian
+    ones. Gradients flow to hom, xy, opacity, normal_view, color and refl:
+    the kernel's hand-derived backward, then the sort-regroup of the slab
+    gather (bf16_grads packs its rows in bf16 pairs)."""
     tiles_y, tiles_x = tile_grid(height, width)
     with stage("pack_features"):
         feats = tb.pack_features(
             binned.aligned_gid, binned.aligned_valid,
             hom, xy, opacity, normal_view, color, refl, scope_mask,
-            bf16_feats=bf16_feats,
+            group_key=binned.aligned_rank, rank_of=binned.rank_of,
+            seg_start=binned.seg_start, seg_end=binned.seg_end,
+            bf16_grads=bf16_grads, bf16_feats=bf16_feats,
         )
         org = tile_origins(height, width, device=hom.device)
     with stage("tile_blend_forward"):
-        out_px, wmax = tb.tile_blend_forward(
+        out_px, wmax = tb.blend_kernel(
             feats, binned.aligned_starts, binned.tile_counts,
             org[:, 0].contiguous(), org[:, 1].contiguous(),
-            train_shape=train_shape, packed_feats=bf16_feats,
+            full_grads=not train_shape, packed_feats=bf16_feats,
             collect_wmax=collect_weights,
         )
     with stage("assemble_image"):

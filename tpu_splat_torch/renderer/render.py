@@ -1,11 +1,11 @@
-"""Deferred-reflection serving render (port of render_fast and its helpers
-from tpu_splat/renderer/render.py).
+"""Deferred-reflection rendering (port of tpu_splat/renderer/render.py).
 
-render_fast(): rasterize the base colour and auxiliary maps, then reflect
-the camera rays about the rendered world normal, sample the learned cubemap
-and composite `(1-refl)*base + refl*env` (reference render_fast, :221-326).
-Maps are channels-last [H, W, C]. The training `render` (with
-`depth_to_normal`) comes with the training slice.
+render() (training, differentiable) and render_fast() (serving): rasterize
+the base colour and auxiliary maps, then reflect the camera rays about the
+rendered world normal, sample the learned cubemap and composite
+`(1-refl)*base + refl*env` (reference gaussian_renderer/__init__.py).
+render() also derives the expected depth and the depth-derived pseudo
+surface normal. Maps are channels-last [H, W, C].
 """
 from __future__ import annotations
 
@@ -47,9 +47,35 @@ class RenderOutput(NamedTuple):
 
 
 def _safe_normalize(v: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Normalize, with zero vectors (empty pixels) staying finite."""
+    """Normalize, with zero vectors (empty pixels) staying finite and their
+    gradients NaN-free. A maximum, as `jnp.maximum` (1/2 gradient at a tie),
+    against a 0-d device fill: a tensor copied from the host would
+    synchronize the stream."""
     n2 = torch.sum(v * v, dim=-1, keepdim=True)
-    return v / (torch.sqrt(torch.clamp(n2, min=eps * eps)) + eps)
+    return v / (torch.sqrt(torch.maximum(n2, n2.new_full((), eps * eps))) + eps)
+
+
+def depth_to_normal(camera: Camera, depth: torch.Tensor) -> torch.Tensor:
+    """Pseudo surface normal from a depth map via cross products of
+    image-space point derivatives (reference utils/point_utils.py:9-37).
+    depth [H, W] -> [H, W, 3] world-space, with a zero border."""
+    H, W = camera.height, camera.width
+    dev = depth.device
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=dev),
+        torch.arange(W, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    pix = torch.stack([i, j, torch.ones_like(i)], dim=-1)
+    Kinv = torch.linalg.inv(camera.K)
+    dirs_cam = torch.einsum("hwj,kj->hwk", pix, Kinv)  # z = 1
+    R_c2w = camera.world_view[:3, :3].T
+    dirs_world = torch.einsum("hwj,kj->hwk", dirs_cam, R_c2w)
+    points = depth[..., None] * dirs_world + camera.camera_center
+    dx = points[2:, 1:-1] - points[:-2, 1:-1]
+    dy = points[1:-1, 2:] - points[1:-1, :-2]
+    n = _safe_normalize(torch.linalg.cross(dx, dy, dim=-1), eps=1e-12)
+    return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
 
 
 def get_refl_color(env, camera: Camera, normal_map: torch.Tensor) -> torch.Tensor:
@@ -65,6 +91,93 @@ def render_env_map(state: GaussianState, H: int = 512, W: int = 1024):
     e1 = torch.sigmoid(sample_cubemap(state.env, env_rays_latlong1(H, W, device=dev)))
     e2 = torch.sigmoid(sample_cubemap(state.env, env_rays_latlong2(H, W, device=dev)))
     return {"env_cood1": e1, "env_cood2": e2}
+
+
+def render(
+    state: GaussianState,
+    camera: Camera,
+    cfg: RasterConfig,
+    bg: torch.Tensor,
+    scaling_modifier: float = 1.0,
+    initial_stage: bool = False,
+    env_scope_center=None,
+    env_scope_radius: float = 0.0,
+    override_color: torch.Tensor | None = None,
+    screen_offset: torch.Tensor | None = None,
+) -> RenderOutput:
+    """Differentiable training render (reference render(), :42-219): the
+    rasterized base colour and auxiliary maps, the expected depth and the
+    pseudo surface normal derived from it, then -- past the initial stage --
+    the deferred reflection `(1-refl)*base + refl*env`.
+
+    `initial_stage` is a Python bool. In the initial stage the env pass is
+    not run: the JAX package selects the base colour there, so the env map
+    and the reflection strength get zero gradients either way."""
+    H, W = camera.height, camera.width
+    dev = state.device
+    if env_scope_radius > 0.0:
+        c = torch.as_tensor(env_scope_center, dtype=torch.float32, device=dev)
+        scope = torch.sum((state.xyz - c[None]) ** 2, dim=-1) < env_scope_radius**2
+    else:
+        scope = torch.ones((state.capacity,), dtype=torch.bool, device=dev)
+
+    out = rasterize(
+        state.xyz,
+        state.get_scaling(),
+        state.rotation,
+        state.get_opacity(),
+        state.get_refl(),
+        camera,
+        bg,
+        cfg,
+        sh=None if override_color is not None else state.get_features(),
+        sh_degree=state.max_sh_degree,
+        colors=override_color,
+        scope_mask=scope,
+        scale_modifier=scaling_modifier,
+        screen_offset=screen_offset,
+        alive=state.alive,
+    )
+    with stage("surface"):
+        allmap = out.others
+        alpha = allmap[..., 1:2]
+        R_v2w = camera.world_view[:3, :3].T
+        normal_world = torch.einsum("hwj,kj->hwk", allmap[..., 2:5], R_v2w)
+        depth_median = torch.nan_to_num(allmap[..., 5:6], nan=0.0)
+        # a maximum, as `jnp.clip` (1/2 gradient at a tie)
+        depth_expected = allmap[..., 0:1] / torch.maximum(alpha, alpha.new_full((), 1e-3))
+        depth_expected = torch.nan_to_num(depth_expected, nan=0.0)
+        surf_depth = depth_expected * (1 - cfg.depth_ratio) + cfg.depth_ratio * depth_median
+        surf_normal = depth_to_normal(camera, surf_depth[..., 0]) * alpha.detach()
+        normal_world = _safe_normalize(normal_world)
+
+    refl_map = out.refl_map[..., None]
+    if initial_stage:
+        render_img = out.color
+        refl_color = torch.zeros_like(out.color)
+    else:
+        with stage("reflection"):
+            refl_color = get_refl_color(state.env, camera, normal_world)
+            render_img = (1.0 - refl_map) * out.color + refl_map * refl_color
+    return RenderOutput(
+        render=render_img,
+        base_color=out.color,
+        refl_color=refl_color,
+        refl_strength=refl_map,
+        alpha=alpha,
+        normal=normal_world,
+        dist=allmap[..., 6:7],
+        surf_depth=surf_depth,
+        surf_normal=surf_normal,
+        scope_mask=allmap[..., 7:8],
+        radii=out.radii,
+        gaussian_weights=out.gaussian_weights,
+        visibility=out.radii > 0,
+        num_instances=out.num_instances,
+        max_area=out.max_area,
+        max_tile_count=torch.max(out.tile_counts),
+        pad_overflow=out.pad_overflow,
+    )
 
 
 @torch.no_grad()
