@@ -13,11 +13,19 @@ training step (`make_train_step`, production switches, the ISP on): the
 three backward kernels against their plain versions on inputs captured
 inside a small step's autograd Functions, a small step on the card against
 the CPU run, then 1 + 4 steps at 1088x1920 on 1M Gaussians, each of which
-must launch all four kernels. Each phase prints one line; every failed
-check raises, so the exit code is not 0. Details go to
+must launch all four kernels. Phase 7 drives the `--tight_culling` loop
+body (the step with two-level binning, `run_scheduled_events`,
+`check_growth`): `run_expand` bit-exact against its plain version on the
+run tables binning builds at the bench frame, tight binning of a 100k
+subset on the card against the CPU, a small loop on the card against the
+CPU event by event, 1 + 4 tight steps at 1088x1920 on 1M Gaussians (each
+must launch `run_expand` twice and the other four kernels once), the loop
+body at iterations where every scheduled event fires, `segment_sum_rows`
+on the step's regroup rows, and a served tight frame. Each phase prints one
+line; every failed check raises, so the exit code is not 0. Details go to
 chiprun_out/chip_smoke.json. The last three lines are the kernels' JSON
-record (launches over the 4 timed training steps), the card's name and
-power limit as nvidia-smi reports them, and the result line.
+record (launches over the 4 timed tight training steps), the card's name
+and power limit as nvidia-smi reports them, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits with a non-zero code and prints no result.
@@ -31,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -88,6 +97,28 @@ STEP_LOSS_TOL = 1e-5  # relative
 STEP_GRAD_TOL = 1e-2  # of each leaf's max |g|, production bf16 regroup
 TRAIN_KERNELS = ("tile_blend_forward", "tile_blend_backward", "segment_sum_ranges",
                  "cubemap_tap_accumulate")
+
+# the tight-culling training loop (slice 3): the loop body of
+# scripts/train.py:220-330 at iterations where, with the default
+# OptimizationParams, every scheduled event fires (tpu_splat/train/loop.py):
+# 1000 densify; 1500 densify, opacity-LR pulse, normal propagation, colour
+# sabotage; 3000 densify, opacity reset; 15000 env doubling (128 -> 256)
+LOOP_ITERATIONS = (1000, 1500, 3000, 15000)
+LOOP_EVENTS = {1000: {"densify"},
+               1500: {"densify", "opacity_lr_pulse", "normal_prop", "color_sabotage"},
+               3000: {"densify", "reset_opacity"}, 15000: {"double_env_map"}}
+TIGHT_KERNELS = ("run_expand",) + TRAIN_KERNELS
+TIGHT_SUBSET, TIGHT_SUBSET_CAP = 100_000, 401_408  # surfels binned on the card and the CPU alike
+# the small loop's schedule (the events' "- 500" offsets are the JAX
+# package's): densify at 3 and 6, normal propagation at 4, sabotage at 5,
+# opacity reset at 7
+SMALL_LOOP_OPT = dict(init_until_iter=2, densify_from_iter=2, densification_interval=3,
+                      densification_interval_when_prop=3, opacity_reset_interval=7,
+                      densify_until_iter=20, opac_lr0_interval=2, normal_prop_interval=4,
+                      normal_prop_until_iter=20, color_sabotage_interval=5,
+                      color_sabotage_until_iter=20, densify_grad_threshold=2e-5)
+SMALL_LOOP_ITERS = 7
+EVENT_TOL = 1e-6  # event outputs card vs CPU on one input, of each leaf's max
 
 
 def log(phase: str, **kv) -> None:
@@ -498,6 +529,230 @@ def bwd_bound(feats, index, fwd, packed, tested, contributing):
     f_io = tb.F_IN_PACKED if packed else tb.F_PAD
     n_bytes = 2 * cols * f_io * 4 + 2 * fwd.numel() * 4 + 5 * index[0].numel() * 4
     return n_bytes, ALPHA_TEST_OPS * tested + BWD_CONTRIB_OPS * contributing
+
+
+class ExpandCapture:
+    """Wrap binning's `run_expand` and keep the arguments binning hands it
+    (the run tables of the tight levels, or of kernel mode)."""
+
+    def __enter__(self):
+        from tpu_splat_torch.raster import binning
+
+        self.mod, self.orig, self.seen = binning, binning.run_expand, []
+
+        def keep(*args):
+            self.seen.append(tuple(a.detach() if hasattr(a, "detach") else a for a in args))
+            return self.orig(*args)
+
+        binning.run_expand = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_expand = self.orig
+
+
+def check_run_expand(args):
+    """run_expand's kernel against its plain version: rows and j bit-exact.
+    Returns the check and the timings at these inputs."""
+    import torch
+
+    from tpu_splat_torch.kernels import run_expand as rex
+
+    table, off, total, r0, n_out = args
+    rows, j = rex.run_expand(*args)
+    want_rows, want_j = rex.run_expand_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(rows.view(torch.int32), want_rows.view(torch.int32))
+            and torch.equal(j, want_j)):
+        n_bad = int((rows.view(torch.int32) != want_rows.view(torch.int32)).any(0).sum())
+        raise AssertionError(f"run_expand disagrees with its plain version in {n_bad} slots "
+                             f"(K={table.shape[1]}, n_out={n_out})")
+    P_, K = table.shape
+    i = torch.arange(n_out, device=table.device)
+    off64 = off.long()
+
+    def lib():  # the same decode from one searchsorted and one index_select
+        r = torch.clamp(torch.searchsorted(off64, i, right=True) - 1, min=0)
+        return table.index_select(0, r)
+
+    # bytes the decode needs: the table row and offset of each run that
+    # emits a slot below min(total, n_out) (zero-length runs and runs past
+    # total are never read), r0_sub and total, and the rows and j written
+    end = torch.cat([off64[1:], total.long().reshape(1)])
+    emitting = int(((off64 < min(int(total), n_out)) & (end > off64)).sum())
+    n_bytes = (K + 1) * emitting * 4 + (K + 1) * n_out * 4 + r0.numel() * 4 + 4
+    return dict(K=K, n_out=n_out, runs=P_, emitting_runs=emitting, total=int(total),
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: rex.run_expand(*args), 10),
+                plain_ms=wall_ms(lambda: rex.run_expand_plain(*args))[0],
+                library_ms=cuda_ms(lib, 10), bytes=n_bytes, ops=0)
+
+
+def check_segsum_rows(rows_T, starts, ends):
+    """segment_sum_rows' kernel against its plain version, and against
+    segment_sum_ranges on the same data, on row-major rows: within 1e-6 of
+    each column's max |sum|. Returns the check and the timings."""
+    import torch
+
+    from tpu_splat_torch.kernels import segment_reduce as sr
+
+    rows = rows_T.T.contiguous()  # [N, F] row-major
+    got = sr.segment_sum_rows(rows, starts, ends)
+    want = sr.segment_sum_rows_plain(rows, starts, ends)
+    ranges = sr.segment_sum_ranges(rows_T, starts, ends).T
+    torch.cuda.synchronize()
+    scale = want.abs().amax(0)
+    err = (got - want).abs()
+    err_r = (got - ranges).abs()
+    if not (bool((err <= SEGSUM_TOL * scale).all()) and bool((err_r <= SEGSUM_TOL * scale).all())):
+        raise AssertionError(f"segment_sum_rows disagrees: {float(err.max())}, "
+                             f"vs segment_sum_ranges {float(err_r.max())}")
+    covered = int((ends.long() - starts.long()).clamp(min=0).sum())
+    lib_ms = None
+    if bool((starts[1:] == ends[:-1]).all()):  # gap-free runs: one segment_reduce
+        data = rows[int(starts[0]):int(ends[-1])]
+        lengths = (ends - starts).long()
+        lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths), 10)
+    return dict(max_abs_err=float(err.max()), vs_ranges=float(err_r.max()),
+                ms=cuda_ms(lambda: sr.segment_sum_rows(rows, starts, ends), 10),
+                plain_ms=wall_ms(lambda: sr.segment_sum_rows_plain(rows, starts, ends))[0],
+                library_ms=lib_ms, rows=int(rows.shape[0]), features=int(rows.shape[1]),
+                segments=int(starts.numel()),
+                bytes=rows.shape[1] * (covered + starts.numel()) * 4 + 2 * starts.numel() * 4,
+                ops=0)
+
+
+def bin_view(state, cam, cfg):
+    """Binning of one view as a step runs it (preprocess + bin_gaussians)."""
+    import torch
+
+    from tpu_splat_torch.raster.binning import bin_gaussians
+    from tpu_splat_torch.raster.preprocess import preprocess
+
+    with torch.no_grad():
+        p = preprocess(state.xyz, state.get_scaling(), state.rotation, cam.world_view,
+                       cam.full_proj, cam.camera_center, cam.height, cam.width,
+                       sh=state.get_features(), sh_degree=state.active_sh_degree,
+                       opacity=state.get_opacity() if cfg.opacity_rect else None)
+        valid = p.valid & state.alive
+        p = p._replace(valid=valid, tiles_touched=torch.where(valid, p.tiles_touched, 0))
+        return bin_gaussians(p, cam.height, cam.width, cfg)
+
+
+def instance_pairs(b) -> np.ndarray:
+    """The (Gaussian, tile) instances of a Binned as sorted gid * T + tile."""
+    import torch
+
+    starts = b.aligned_starts.long().cpu()
+    slots = torch.nonzero(b.aligned_valid.cpu())[:, 0]
+    tile = torch.searchsorted(starts, slots, right=True) - 1
+    gid = b.aligned_gid.cpu()[slots].long()
+    return np.sort((gid * starts.numel() + tile).numpy())
+
+
+class SharedBinning:
+    """Hands one step's binning input to another: `record()` keeps the
+    preprocess outputs a step bins (detached, on the CPU), `replay()` makes
+    the next step bin those instead of its own, on its own device. The
+    second step then has the first one's instances, and every other value
+    its own."""
+
+    def __init__(self):
+        self.preps = []
+
+    def _wrap(self, fn):
+        import tpu_splat_torch.raster as raster
+
+        orig = raster.bin_gaussians
+
+        def swapped(prep, H, W, cfg):
+            return orig(fn(prep), H, W, cfg)
+
+        class Ctx:
+            def __enter__(self_):
+                raster.bin_gaussians = swapped
+
+            def __exit__(self_, *exc):
+                raster.bin_gaussians = orig
+
+        return Ctx()
+
+    def record(self):
+        self.preps = []
+
+        def keep(prep):
+            self.preps.append(type(prep)(*(x.detach().cpu() for x in prep)))
+            return prep
+
+        return self._wrap(keep)
+
+    def replay(self):
+        queue = list(self.preps)
+
+        def take(prep):
+            if not queue:
+                raise AssertionError("the replayed step bins more often than the recorded one")
+            return type(prep)(*(x.to(prep.depth.device) for x in queue.pop(0)))
+
+        return self._wrap(take)
+
+
+def knife_gaussians(ts_a, ts_b, cam_a, cam_b, cfg) -> np.ndarray:
+    """Gaussians whose instances differ between two states' binnings: a
+    tight tile-row range is a floor of the conic, and the card's and the
+    CPU's exp, log and float32 sqrt round apart, so a few ranges at that
+    knife edge move a tile."""
+    b_a = bin_view(ts_a.gaussians, cam_a, cfg)
+    pa, pb = instance_pairs(b_a), instance_pairs(bin_view(ts_b.gaussians, cam_b, cfg))
+    return np.unique(np.setxor1d(pa, pb) // b_a.aligned_starts.numel())
+
+
+def ts_to_device(ts, device):
+    """A TrainState's tensors copied to `device` (the generator stays)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_splat_torch.model.densify import DensifyStats
+
+    mv = lambda x: x.to(device) if isinstance(x, torch.Tensor) else x
+    g = ts.gaussians
+    g2 = dataclasses.replace(g, **{f.name: mv(getattr(g, f.name))
+                                   for f in dataclasses.fields(g) if f.name != "env"},
+                             env=type(g.env)(*(mv(x) for x in g.env)))
+    return dataclasses.replace(
+        ts, gaussians=g2,
+        opt=ts.opt._replace(mu={k: mv(v) for k, v in ts.opt.mu.items()},
+                            nu={k: mv(v) for k, v in ts.opt.nu.items()}),
+        stats=DensifyStats(*(mv(x) for x in ts.stats)),
+        isp=None if ts.isp is None else type(ts.isp)(*(mv(x) for x in ts.isp)))
+
+
+def compare_train_states(a, b, label, tol=EVENT_TOL):
+    """Two TrainStates (as train_state_to_numpy gives them): the alive set,
+    the opacity rate and every shape exactly; parameters, moments and
+    statistics within tol of each leaf's max. Returns the worst relative
+    difference."""
+    ga, gb = a["gaussians"], b["gaussians"]
+    if not np.array_equal(ga["alive"], gb["alive"]):
+        raise AssertionError(f"{label}: alive sets differ in {int((ga['alive'] != gb['alive']).sum())}")
+    if np.float32(a["opacity_lr"]) != np.float32(b["opacity_lr"]):
+        raise AssertionError(f"{label}: opacity_lr {a['opacity_lr']} vs {b['opacity_lr']}")
+    pairs = [(f"gaussians.{k}", ga[k], gb[k]) for k in ga if isinstance(ga[k], np.ndarray)]
+    pairs += [(f"{m}.{k}", a[m][k], b[m][k]) for m in ("mu", "nu") for k in a[m]]
+    pairs += [(f"stats.{k}", a["stats"][k], b["stats"][k]) for k in a["stats"]]
+    worst = 0.0
+    for name, x, y in pairs:
+        if x.shape != y.shape:
+            raise AssertionError(f"{label}: {name} shapes {x.shape} vs {y.shape}")
+        if x.dtype == bool:
+            continue
+        scale = float(np.abs(x).max()) if x.size else 0.0
+        d = float(np.abs(x - y).max()) if x.size else 0.0
+        if d > tol * scale:
+            raise AssertionError(f"{label}: {name} differs by {d} of {scale}")
+        worst = max(worst, d / scale if scale else 0.0)
+    return worst
 
 
 def main() -> int:
@@ -913,39 +1168,355 @@ def main() -> int:
     detail["train_regroup"] = regroup
     del cap, feats, fwd, ct, rows, vals, rargs, want, got
 
+
+    # 7. the tight-culling training loop (slice 3's main path): the step with
+    # two-level binning, the scheduled events and capacity growth
+    import dataclasses
+
+    from tpu_splat_torch.config import OptimizationParams
+    from tpu_splat_torch.model.convert import train_state_to_numpy
+    from tpu_splat_torch.raster.binning import bin_gaussians
+    from tpu_splat_torch.raster.preprocess import preprocess
+    from tpu_splat_torch.train import loop as tloop
+    from tpu_splat_torch.train.grow import check_growth
+
+    del ts, step, tstate, before, after
+    tight_cfg = production_config(**PROD, tight_culling=True)
+
+    # 7a. run_expand against its plain version on the run tables tight
+    # binning builds at the bench frame (both levels) and kernel mode
+    # builds, and timed there
+    state = build_state(N_GAUSS, CAPACITY, device=dev)
+    with ExpandCapture() as xcap:
+        render_fast(state, views[0], tight_cfg, bgd, collect_weights=False)
+        render_fast(state, views[0], production_config(**PROD, expand_mode="kernel"), bgd,
+                    collect_weights=False)
+    if len(xcap.seen) != 3:
+        raise AssertionError(f"expected 3 run_expand calls, got {len(xcap.seen)}")
+    expand = {name: check_run_expand(a)
+              for name, a in zip(("tight level 1", "tight level 2", "kernel mode"), xcap.seen)}
+    for name, r in expand.items():
+        t_b = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+        r.update(bound_ms=t_b, bound_by="bytes")
+        log("7 run_expand vs plain", table=repr(name), bit_exact=True,
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in r.items()})
+    detail["run_expand"] = expand
+    del xcap
+
+    # 7b. tight binning on the card against the CPU: one preprocess output
+    # of a 100k-surfel subset at the bench view, binned on both
+    sub = dataclasses.replace(state, **{
+        f: getattr(state, f)[:TIGHT_SUBSET].cpu() for f in
+        ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "refl",
+         "alive")}, env=type(state.env)(*(x.cpu() for x in state.env)))
+    cam_c = orbit_camera(H, W, radius=6.0, azimuth=0.4, elevation=0.3, device="cpu")
+    sub_cfg = production_config(**dict(PROD, max_instances=TIGHT_SUBSET_CAP), tight_culling=True)
+    with torch.no_grad():
+        p = preprocess(sub.xyz, sub.get_scaling(), sub.rotation, cam_c.world_view,
+                       cam_c.full_proj, cam_c.camera_center, H, W, sh=sub.get_features(),
+                       sh_degree=3, opacity=sub.get_opacity())
+    b_cpu = bin_gaussians(p, H, W, sub_cfg)
+    b_card = bin_gaussians(type(p)(*(x.to(dev) for x in p)), H, W, sub_cfg)
+    bad = {f: int((getattr(b_card, f).cpu() != getattr(b_cpu, f)).sum()) for f in b_cpu._fields}
+    if any(bad.values()):
+        raise AssertionError(f"tight binning on the card differs from the CPU: {bad}")
+    log("7 tight binning card vs cpu", surfels=TIGHT_SUBSET, fields=len(bad), differing=0,
+        instances=int(b_cpu.num_instances), capacity=sub_cfg.max_instances)
+    detail["tight_card_vs_cpu"] = dict(instances=int(b_cpu.num_instances), differing=bad)
+    del p, b_cpu, b_card, sub
+
+    # 7c. the small loop on the card against the CPU: each step and each
+    # iteration's events run on the card, and again on the CPU from the
+    # card's state before them (the events with the same draws)
+    # under the exact switches: with the bf16 regroup a last-bit difference
+    # in one per-instance gradient moves a sum by 2^-8 of its terms, which
+    # put one row of a cancelling sum 3.4e-2 of its leaf's max apart on the
+    # card (phase 6b holds the production step; 7d runs it at full width).
+    # The CPU step bins the card step's preprocess output (SharedBinning):
+    # the card's exp, log and float32 sqrt round apart from the CPU's, and a
+    # tight tile-row range is a floor of the conic, so a few Gaussians at
+    # that knife edge would get other instances (knife_gaussians, counted
+    # and reported); on the card's instances every gradient row is held at
+    # slice 2's tolerance, and 7b holds the binning itself card = CPU
+    small_cfg = production_config(**SMALL, tight_culling=True, bf16_grads=False,
+                                  bf16_feats=False)
+    lopt = OptimizationParams(**SMALL_LOOP_OPT)
+    st = small_scene(SMALL_N, 3, dev)
+    _, ts, isp = train_start(st, 2)
+    ts.step = 0
+    cam_s = {d_: orbit_camera(SMALL_H, SMALL_W, radius=4.0, azimuth=0.5, elevation=0.2, device=d_)
+             for d_ in ("cpu", dev)}
+    gt_np = np.random.default_rng(1).uniform(0, 1, (SMALL_H, SMALL_W, 3)).astype(np.float32)
+    steps_s = {d_: make_train_step(lopt, small_cfg, 1.0, isp_cfg=isp) for d_ in ("cpu", dev)}
+    small_loop = []
+    logs = {d_: tloop.EventLog() for d_ in ("cpu", dev)}
+    shared = SharedBinning()
+    for it in range(1, SMALL_LOOP_ITERS + 1):
+        ts_c = pre_c = ts_to_device(ts, "cpu")
+        run = {}
+        for d_, t_, ctx in ((dev, ts, shared.record), ("cpu", ts_c, shared.replay)):
+            with ctx():
+                run[d_] = steps_s[d_](t_, cam_s[d_], torch.tensor(gt_np, device=d_),
+                                      torch.zeros(3, device=d_), frame_idx=1)
+        (ts, aux_g), (ts_c, aux_c) = run[dev], run["cpu"]
+        if int(aux_g.num_instances) != int(aux_c.num_instances):
+            raise AssertionError(f"small loop iteration {it}: the shared binning gave "
+                                 f"{int(aux_g.num_instances)} vs {int(aux_c.num_instances)}")
+        # loss and l1 relative; ssim absolute: against random ground truth it
+        # is ~0.02, and the loss takes 1 - ssim
+        rec = {f: abs(float(getattr(aux_g, f)) - float(getattr(aux_c, f)))
+               / (max(abs(float(getattr(aux_c, f))), 1e-30) if f != "ssim" else 1.0)
+               for f in ("loss", "l1", "ssim")}
+        if max(rec.values()) > STEP_LOSS_TOL:
+            raise AssertionError(f"small loop iteration {it}: losses {rec}")
+        worst_grad = 0.0
+        for k, ga in aux_c.grads.items():
+            err = float((aux_g.grads[k].cpu() - ga).abs().max())
+            scale = float(ga.abs().max())
+            if err > STEP_GRAD_TOL * scale + 1e-30:
+                raise AssertionError(f"small loop iteration {it}: gradient {k} off by "
+                                     f"{err} of {scale}")
+            worst_grad = max(worst_grad, err / max(scale, 1e-30))
+        knife = knife_gaussians(pre_c, ts_to_device(pre_c, dev), cam_s["cpu"], cam_s[dev],
+                                small_cfg)
+        cached = {}
+        draw_g = tloop.generator_draws(ts.generator)
+
+        def draws(name, shape):  # one set of draws for both devices
+            if name not in cached:
+                cached[name] = draw_g(name, shape)
+            return cached[name]
+
+        ts_c = ts_to_device(ts, "cpu")
+        ts = tloop.run_scheduled_events(ts, it, lopt, 1.6, np.zeros(3), log=logs[dev],
+                                        draws=draws)
+        ts_c = tloop.run_scheduled_events(ts_c, it, lopt, 1.6, np.zeros(3), log=logs["cpu"],
+                                          draws=draws)
+        worst = compare_train_states(train_state_to_numpy(ts_c), train_state_to_numpy(ts),
+                                     f"small loop iteration {it}")
+        if dataclasses.asdict(logs[dev]) != dataclasses.asdict(logs["cpu"]):
+            raise AssertionError(f"small loop iteration {it}: event logs differ")
+        small_loop.append(dict(iteration=it, instances=int(aux_g.num_instances),
+                               cpu_instances=int(aux_c.num_instances),
+                               knife_gaussians=knife.tolist(), grad_rel=worst_grad,
+                               loss_rel=max(rec.values()), events_rel=worst,
+                               alive=int(ts.gaussians.alive.sum())))
+    if logs[dev].densified + logs[dev].pruned == 0:
+        raise AssertionError("the small loop's densify events changed nothing")
+    log("7 small loop card vs cpu", iterations=SMALL_LOOP_ITERS,
+        events=json.dumps(logs[dev].events).replace(" ", ""), densified=logs[dev].densified,
+        pruned=logs[dev].pruned, worst_event_rel=f"{max(r['events_rel'] for r in small_loop):.3g}",
+        worst_loss_rel=f"{max(r['loss_rel'] for r in small_loop):.3g}",
+        worst_grad_rel=f"{max(r['grad_rel'] for r in small_loop):.3g}",
+        knife_gaussians=sum(len(r["knife_gaussians"]) for r in small_loop))
+    detail["small_loop"] = dict(iterations=small_loop, log=dataclasses.asdict(logs[dev]))
+    del ts, ts_c, run, steps_s
+
+    # 7d. the slice at full width: 1M Gaussians in a 2^20 capacity, the
+    # production switches with tight culling, the ISP on; a warm-up step and
+    # four timed steps over the four views, then the loop body at
+    # LOOP_ITERATIONS: step, scheduled events, check_growth
+    del state
+    tstate = build_state(N_GAUSS, CAPACITY, cubemap=TRAIN_CUBEMAP, device=dev)
+    opt, ts, isp = train_start(tstate, N_VIEWS)
+    del tstate
+    step = make_train_step(opt, tight_cfg, 1.0, isp_cfg=isp)
+    with Capture() as cap:  # warm-up step, its segment-sum inputs captured
+        ts, aux = step(ts, views[0], gts[0], bg_train, frame_idx=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    tight_steps, tight_per_step = [], []
+    for k in range(TRAIN_STEPS):
+        before_k = dict(LAUNCHES)
+        ms, (ts, aux) = wall_ms(lambda: step(ts, views[k], gts[k], bg_train, frame_idx=k))
+        launched = {n: LAUNCHES[n] - before_k.get(n, 0) for n in TIGHT_KERNELS}
+        tight_per_step.append(launched)
+        want = {n: 2 if n == "run_expand" else 1 for n in TIGHT_KERNELS}
+        if launched != want:
+            raise AssertionError(f"tight step {k}: launches {launched}, want {want}")
+        loss = float(aux.loss)
+        if not math.isfinite(loss):
+            raise AssertionError(f"tight step {k}: non-finite loss {loss}")
+        tight_steps.append(dict(wall_ms=ms, instances=int(aux.num_instances), loss=loss))
+        log("7 tight train", step=k, wall_ms=f"{ms:.2f}", instances=tight_steps[-1]["instances"],
+            loss=f"{loss:.4f}", launches=json.dumps(launched).replace(" ", ""))
+    tight_launches = {n: sum(p_[n] for p_ in tight_per_step) for n in TIGHT_KERNELS}
+    # host synchronizations inside one step, rect and tight: CUDA's sync
+    # debug mode warns at each
+    syncs = {}
+    for name, st_fn in (("rect", make_train_step(opt, cfg, 1.0, isp_cfg=isp)), ("tight", step)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ts, aux = st_fn(ts, views[0], gts[0], bg_train, frame_idx=0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        where = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        syncs[name] = len(where)
+        if name == "tight":  # the source lines that synchronize, most first
+            detail["tight_sync_sources"] = sorted(
+                ((where.count(x), x) for x in set(where)), reverse=True)
+    # the densify event's draws: made on the CPU, copied to the card
+    draw_ms, _ = wall_ms(lambda: tloop.generator_draws(ts.generator)(
+        "densify_eps", (2, ts.gaussians.capacity, 2)).to(dev))
+    draw_bytes = 2 * 2 * ts.gaussians.capacity * 4
+    log("7 tight train", host_syncs_per_step=json.dumps(syncs).replace(" ", ""),
+        densify_draws_ms=f"{draw_ms:.2f}", draws_mb=f"{draw_bytes / 1e6:.1f}")
+    peak_tight = torch.cuda.max_memory_allocated() / 2**30
+    runs = []
+    for _ in range(3):
+        with record_stages() as st_ms:
+            total, (ts, aux) = wall_ms(lambda: step(ts, views[0], gts[0], bg_train, frame_idx=0))
+        runs.append(dict(st_ms, step_wall=total))
+    tight_stages = {k: float(np.median([r.get(k, 0.0) for r in runs])) for k in runs[-1]}
+    tight_stages["binning_rest"] = tight_stages["binning"] - sum(
+        tight_stages.get(k, 0.0) for k in ("tight_level1_decode", "tight_column_range",
+                                            "tight_level2_decode"))
+    log("7 tight train stages", **{k: f"{v:.2f}" for k, v in tight_stages.items()})
+    inst = [dict(view=k, tight=int(bin_view(ts.gaussians, views[k], tight_cfg).num_instances),
+                 rect=int(bin_view(ts.gaussians, views[k], cfg).num_instances))
+            for k in range(N_VIEWS)]
+    log("7 instances tight vs rect", **{f"view{r['view']}": f"{r['tight']}/{r['rect']}"
+                                        for r in inst})
+    # segment_sum_rows on the warm-up step's regroup rows, made row-major
+    (sargs, _), = cap.seen["segment_sum_ranges"]
+    segrows = check_segsum_rows(*sargs)
+    segrows.update(bound_ms=segrows["bytes"] / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    log("7 segment_sum_rows vs plain", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                          for k, v in segrows.items()})
+    del cap, sargs
+
+    # the loop body at LOOP_ITERATIONS (scripts/train.py:220-330): growth is
+    # checked after every one of them (each is a multiple of 100)
+    counted = {"densify": 0}
+    densify_fn = tloop.densify_and_prune
+
+    def counting_densify(*a, **kw):
+        counted["densify"] += 1
+        return densify_fn(*a, **kw)
+
+    tloop.densify_and_prune = counting_densify
+    ev_log = tloop.EventLog()
+    loop_recs, cur_cfg = [], tight_cfg
+    extent, cam_mean = 6.0, np.zeros(3, np.float32)
+    try:
+        for it in LOOP_ITERATIONS:
+            ts = dataclasses.replace(ts, step=it - 1)
+            k = LOOP_ITERATIONS.index(it) % N_VIEWS
+            ms_step, (ts, aux) = wall_ms(lambda: step(ts, views[k], gts[k], bg_train,
+                                                      frame_idx=k))
+            n_dens, n_events = counted["densify"], len(ev_log.events)
+            prev_overflow = ev_log.overflowed
+            ms_ev, ts = wall_ms(lambda: tloop.run_scheduled_events(
+                ts, it, opt, extent, cam_mean, log=ev_log))
+            fired = {e for i, e in ev_log.events[n_events:]}
+            if counted["densify"] > n_dens:
+                fired.add("densify")
+            missing = LOOP_EVENTS[it] - fired
+            if missing:
+                raise AssertionError(f"iteration {it}: events {sorted(missing)} did not fire")
+            diag = dict(n_alive=int(aux.n_alive), num_instances=int(aux.num_instances),
+                        densify_overflow=ev_log.overflowed - prev_overflow,
+                        pad_overflow=int(aux.pad_overflow))
+            ms_grow, dec = wall_ms(lambda: check_growth(ts, cur_cfg, **diag))
+            if dec.grew:
+                ts, cur_cfg = dec.ts, dec.cfg
+                step = make_train_step(opt, cur_cfg, 1.0, isp_cfg=isp)
+            loop_recs.append(dict(iteration=it, step_ms=ms_step, events_ms=ms_ev,
+                                  growth_ms=ms_grow, events=sorted(fired),
+                                  growth=list(dec.reasons), capacity=ts.gaussians.capacity,
+                                  max_instances=cur_cfg.max_instances, **diag,
+                                  opacity_lr=ts.opacity_lr,
+                                  cubemap=ts.gaussians.env.resolution))
+            log("7 loop", iteration=it, step_ms=f"{ms_step:.2f}", events_ms=f"{ms_ev:.2f}",
+                growth_ms=f"{ms_grow:.2f}", events=",".join(sorted(fired)),
+                growth=repr("; ".join(dec.reasons)), capacity=ts.gaussians.capacity,
+                instances=diag["num_instances"], alive=diag["n_alive"],
+                cubemap=ts.gaussians.env.resolution)
+    finally:
+        tloop.densify_and_prune = densify_fn
+    # one step after the events and growth: the grown, doubled state trains
+    ts = dataclasses.replace(ts, step=LOOP_ITERATIONS[-1])
+    ms_after, (ts, aux) = wall_ms(lambda: step(ts, views[0], gts[0], bg_train, frame_idx=0))
+    if not math.isfinite(float(aux.loss)) or ts.gaussians.env.resolution != 2 * TRAIN_CUBEMAP:
+        raise AssertionError("the step after the events failed")
+    peak_loop = torch.cuda.max_memory_allocated() / 2**30
+    log("7 loop", event_log=json.dumps(dataclasses.asdict(ev_log)).replace(" ", ""),
+        step_after_ms=f"{ms_after:.2f}", peak_mem_gib=f"{peak_loop:.2f}",
+        alive=int(ts.gaussians.alive.sum()), capacity=ts.gaussians.capacity)
+    detail["tight_train"] = dict(
+        steps=tight_steps, launches_per_step=tight_per_step, stages_ms=tight_stages,
+        instances=inst, peak_mem_gib=peak_tight, loop=loop_recs, step_after_ms=ms_after,
+        event_log=dataclasses.asdict(ev_log), loop_peak_mem_gib=peak_loop,
+        densify_draw_bytes=draw_bytes, densify_draws_ms=draw_ms,
+        host_syncs_per_step=syncs)
+    del ts, step, aux
+
+    # 7e. one served frame with tight culling beside the rect frame of phase
+    # 4, and the binning stage of each expansion (median of 3 frames)
+    state = build_state(N_GAUSS, CAPACITY, device=dev)
+    render_fast(state, views[0], tight_cfg, bgd, collect_weights=False)  # warm-up
+    ms_t, out_t = wall_ms(lambda: render_fast(state, views[0], tight_cfg, bgd,
+                                              collect_weights=False))
+    check_frame(out_t, tight_cfg, "tight served")
+    served_tight = dict(wall_ms=ms_t, instances=int(out_t.num_instances),
+                        rect_wall_ms=served["view0"]["wall_ms"],
+                        rect_instances=served["view0"]["instances"])
+    for name, c in (("gather", cfg), ("kernel", production_config(**PROD, expand_mode="kernel")),
+                    ("tight", tight_cfg)):
+        ms_b = []
+        for _ in range(3):
+            with record_stages() as st_ms:
+                render_fast(state, views[0], c, bgd, collect_weights=False)
+            ms_b.append(st_ms["binning"])
+        served_tight[f"binning_ms_{name}"] = float(np.median(ms_b))
+    log("7 serve tight", **{k: (f"{v:.2f}" if isinstance(v, float) else v)
+                            for k, v in served_tight.items()})
+    detail["serve_tight"] = served_tight
+    del state, out_t
+
+    # the kernels' record: launches over the 4 timed steps of the newest
+    # main path (the tight-culling step; segment_sum_rows is on no path)
+    expand_sum = {f: sum(r[f] for r in list(expand.values())[:2])
+                  for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    timing["run_expand"] = dict(expand_sum, bound_by="bytes")
+    timing["segment_sum_rows"] = segrows
+    kernel_errs["run_expand"] = [0.0]
+    kernel_errs["segment_sum_rows"] = [segrows["max_abs_err"]]
+    timing["tile_blend_forward"] = dict(ms=fwd_k_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound_ms,
+                                        bound_by=fwd_bound_by, library_ms=None)
+    kernel_errs["tile_blend_forward"] = errs
     sources = {
+        "tile_blend_forward": ("tpu_splat_torch/csrc/tile_blend_fwd.cu",
+                               "tpu_splat/kernels/tile_blend.py:670"),
         "tile_blend_backward": ("tpu_splat_torch/csrc/tile_blend_bwd.cu",
                                 "tpu_splat/kernels/tile_blend.py:1347"),
         "segment_sum_ranges": ("tpu_splat_torch/csrc/segment_sum_ranges.cu",
                                "tpu_splat/kernels/segment_reduce.py:229"),
         "cubemap_tap_accumulate": ("tpu_splat_torch/csrc/cubemap_accum.cu",
                                    "tpu_splat/kernels/cubemap_accum.py:132"),
+        "run_expand": ("tpu_splat_torch/csrc/run_expand.cu",
+                       "tpu_splat/kernels/run_expand.py:128"),
+        "segment_sum_rows": ("tpu_splat_torch/csrc/segment_sum_rows.cu",
+                             "tpu_splat/kernels/segment_reduce.py:107"),
     }
     record = {"kernels": [{
-        "name": "tile_blend_forward",
-        "route": "cuda",
-        "source": "tpu_splat_torch/csrc/tile_blend_fwd.cu",
-        "replaces": "tpu_splat/kernels/tile_blend.py:670",
-        "launches": train_launches["tile_blend_forward"],
-        "max_abs_err": max(errs),
-        "ms": fwd_k_ms,
-        "plain_ms": fwd_plain_ms,
-        "bound_ms": fwd_bound_ms,
-        "bound_by": fwd_bound_by,
-        "library_ms": None,
-    }] + [{
         "name": name,
         "route": "cuda",
         "source": sources[name][0],
         "replaces": sources[name][1],
-        "launches": train_launches[name],
+        "launches": tight_launches.get(name, 0),
         "max_abs_err": max(kernel_errs[name]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
-    } for name in TRAIN_KERNELS[1:]]}
+    } for name in sources]}
+    detail["launches_slice2_steps"] = train_launches
     detail["record"] = record
     detail["seconds"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -19,8 +19,10 @@ d_feats row within 1e-3 of the row's max |value| (the kernel sums its
 suffixes and pixel reductions in another order; packed content compared
 unpacked). segment_sum_ranges: 1e-6 of the largest |sum| (both sum each
 run in order). cubemap_tap_accumulate: 1e-5 of the largest |d_tex| (float
-atomics add in run-dependent order). The training step on the card against
-the CPU run: losses 1e-5 relative, every gradient 1e-2 of its leaf's max
+atomics add in run-dependent order). run_expand: rows and j bit-exact (a
+copy). segment_sum_rows: 1e-6 of each column's max |sum| (both sum each run
+in order). Tight binning on the card against the CPU: every field exact.
+The training step on the card against the CPU run: losses 1e-5 relative, every gradient 1e-2 of its leaf's max
 (the production bf16 regroup; tests/test_torch_train.py).
 """
 import itertools
@@ -37,6 +39,7 @@ from tpu_splat_torch.config import OptimizationParams
 from tpu_splat_torch.isp.ppisp import ISPConfig
 from tpu_splat_torch.kernels import LAUNCHES, build
 from tpu_splat_torch.kernels import cubemap_accum as ca
+from tpu_splat_torch.kernels import run_expand as re_
 from tpu_splat_torch.kernels import segment_reduce as sr
 from tpu_splat_torch.kernels import tile_blend as tb
 from tpu_splat_torch.model.convert import camera_from_numpy, state_from_numpy
@@ -79,7 +82,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpu_splat'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 34 else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 38 else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -248,6 +251,14 @@ def test_failed_build_raises_and_does_not_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tb.tile_blend_backward(torch.zeros((tb.F_PAD, 256), device=dev), *idx, px, px)
     with pytest.raises(RuntimeError, match="nvcc failed"):
+        re_.run_expand(torch.zeros((4, 5), device=dev), torch.zeros(4, dtype=i32, device=dev),
+                       torch.zeros((), dtype=i32, device=dev),
+                       torch.zeros(32, dtype=i32, device=dev), 4096)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sr.segment_sum_rows(torch.zeros((64, 19), device=dev),
+                            torch.zeros(4, dtype=i32, device=dev),
+                            torch.zeros(4, dtype=i32, device=dev))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
         n = 8
         ca.cubemap_tap_accumulate(
             torch.zeros((n, 3), device=dev), *[torch.zeros((4, n), dtype=i32, device=dev)] * 2,
@@ -340,3 +351,95 @@ def test_train_step_on_card_matches_cpu():
         gb = b.grads[k].cpu()
         scale = float(ga.abs().max())
         assert float((gb - ga).abs().max()) <= 1e-2 * scale + 1e-30, k
+
+
+
+def test_slice3_wrappers_check_their_inputs():
+    i32 = torch.int32
+    table = torch.zeros((40, 5))
+    off = torch.zeros(40, dtype=i32)
+    tot = torch.zeros((), dtype=i32)
+    r0 = torch.zeros(32, dtype=i32)
+    with pytest.raises(ValueError, match="table must be float32"):
+        re_.run_expand(table.double(), off, tot, r0, 4096)
+    with pytest.raises(ValueError, match="offsets"):
+        re_.run_expand(table, off.long(), tot, r0, 4096)
+    with pytest.raises(ValueError, match="total"):
+        re_.run_expand(table, off, tot.reshape(1), r0, 4096)
+    rows, j = re_.run_expand(table, off, tot, r0, 4096)  # total 0: nothing covered
+    assert rows.shape == (5, 4096) and not rows.any()
+    assert torch.equal(j, torch.arange(4096, dtype=i32))
+
+    se = torch.zeros(4, dtype=i32)
+    with pytest.raises(ValueError, match="F <= 32"):
+        sr.segment_sum_rows(torch.zeros((64, 33)), se, se)
+    with pytest.raises(ValueError, match="rows must"):
+        sr.segment_sum_rows(torch.zeros((64, 19), dtype=torch.float64), se, se)
+    with pytest.raises(ValueError, match="ends"):
+        sr.segment_sum_rows(torch.zeros((64, 19)), se, se[:3])
+    assert sr.segment_sum_rows(torch.zeros((64, 19)), se, se).shape == (4, 19)
+
+
+def _run_table(rng, P, n_out, K):
+    lens = rng.integers(1, 9, P)
+    lens[P - P // 10:] = 0
+    off = np.cumsum(lens) - lens
+    total = min(int(lens.sum()), n_out)
+    mark = np.zeros(n_out + P + 1, np.int64)
+    mark[np.where((lens > 0) & (off < n_out), off, n_out + np.arange(P))] += 1
+    r0 = np.maximum(np.cumsum(mark[:n_out])[::128] - 1, 0)
+    table = rng.normal(size=(P, K)).astype(np.float32)
+    table[:, 0] = rng.integers(0, 1 << 22, P)
+    table[::5, 1] = -0.0
+    dev = lambda x: torch.tensor(np.asarray(x, np.int32), device="cuda")
+    return (torch.tensor(table, device="cuda"), dev(np.minimum(off, n_out)), dev(total), dev(r0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,n_out,P", [(4, 8192, 3000), (5, 4096, 300), (11, 12288, 2500)])
+def test_run_expand_kernel_matches_plain_on_card(K, n_out, P):
+    _need_card()
+    args = _run_table(np.random.default_rng(K), P, n_out, K)
+    before = LAUNCHES["run_expand"]
+    rows, j = re_.run_expand(*args, n_out)
+    assert LAUNCHES["run_expand"] == before + 1
+    want_rows, want_j = re_.run_expand_plain(*args, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.view(torch.int32), want_rows.view(torch.int32))
+    assert torch.equal(j, want_j)
+
+
+@pytest.mark.gpu
+def test_segment_sum_rows_kernel_matches_plain_on_card():
+    _need_card()
+    rng = np.random.default_rng(3)
+    for F in (19, 32):
+        N, P_ = 50_000, 12_000
+        lens = rng.integers(0, 9, P_)
+        starts = np.cumsum(rng.integers(0, 3, P_) + np.concatenate([[0], lens[:-1]]))
+        s, e = (torch.tensor(x.astype(np.int32), device="cuda") for x in (starts, starts + lens))
+        rows = torch.tensor(rng.normal(size=(N, F)).astype(np.float32), device="cuda")
+        before = LAUNCHES["segment_sum_rows"]
+        got = sr.segment_sum_rows(rows, s, e)
+        assert LAUNCHES["segment_sum_rows"] == before + 1
+        want = sr.segment_sum_rows_plain(rows, s, e)
+        assert bool(((got - want).abs() <= 1e-6 * want.abs().amax(0)).all()), F
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tight", "kernel"])
+def test_run_decode_binning_on_card_matches_cpu(mode):
+    _need_card()
+    sw = dict(tight_culling=True) if mode == "tight" else dict(expand_mode="kernel")
+    cfg = production_config(**KW, **sw)
+    st = state_from_numpy(_scene(900, 7), device="cpu")
+    cam = orbit_camera(H, W, radius=4.0, azimuth=0.3, elevation=0.2, device="cpu")
+    p = preprocess(st.xyz, st.get_scaling(), st.rotation, cam.world_view, cam.full_proj,
+                   cam.camera_center, H, W, sh=st.get_features(), sh_degree=1,
+                   opacity=st.get_opacity())
+    # one preprocess output for both devices (exp and the SH round apart
+    # between the card and the CPU): binning alone is compared
+    out = {dev: bin_gaussians(type(p)(*(x.to(dev) for x in p)), H, W, cfg)
+           for dev in ("cpu", "cuda")}
+    for f in out["cpu"]._fields:
+        assert torch.equal(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f)), f

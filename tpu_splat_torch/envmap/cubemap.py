@@ -8,7 +8,8 @@ gather, as in the JAX package. The seamless sample is differentiable in
 texture, fail value and direction: its texel gradient goes through the
 `cubemap_tap_accumulate` kernel (kernels/cubemap_accum.py), its direction
 gradient through the tap-weight derivatives. The "bilinear" and "nearest"
-filters differentiate by autograd of their gathers.
+filters differentiate by autograd of their gathers. `resize_cubemap` and
+`sharpen_cubemap` serve the trainer's env-map doubling and filtering.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from tpu_splat_torch.core.device import resolve_device
+from tpu_splat_torch.core.transforms import inverse_sigmoid
 
 
 class CubemapParams(NamedTuple):
@@ -356,3 +358,61 @@ def sample_cubemap(
             raise ValueError(f"unknown interp {interp!r}")
 
     return torch.where(fail[..., None], params.fail_value, out)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """The Keys cubic kernel (a = -0.5) as jax.image evaluates it."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _cubic_resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] float32 weights of jax.image.resize(method="cubic")
+    along one axis: half-pixel centres, the kernel scaled when shrinking,
+    its weights normalised over the taps that fall inside the input, and
+    samples outside the input zeroed (jax/_src/image/scale.py:
+    compute_weight_mat). torch's bicubic interpolate (a = -0.75, edge
+    clamping) is another function."""
+    inv_scale = 1.0 / torch.tensor(n_out / n_in, dtype=torch.float32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None])
+    weights = _keys_cubic(x / kernel_scale)
+    total = weights.sum(0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    weights = torch.where(total.abs() > eps,
+                          weights / torch.where(total != 0, total, torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device)
+
+
+def resize_cubemap(params: CubemapParams, new_resolution: int) -> CubemapParams:
+    """Bicubic resize of every face (reference resize(),
+    cubemap_encoder.py:102-105; used by double_env_map): the JAX package's
+    jax.image.resize(method="cubic"), applied as one weight matrix per
+    axis."""
+    L = params.resolution
+    w = _cubic_resize_matrix(L, new_resolution, params.texture.device)
+    tex = torch.einsum("fcij,iy,jx->fcyx", params.texture, w, w)
+    return CubemapParams(texture=tex.contiguous(), fail_value=params.fail_value)
+
+
+def sharpen_cubemap(params: CubemapParams, factor: float = 2.0) -> CubemapParams:
+    """Sharpen in sigmoid space (reference filter(), cubemap_encoder.py:
+    107-113: torchvision adjust_sharpness, the 1-pixel border kept, then
+    clamped to [1e-3, 1 - 1e-3] before the logit). The 3x3 blur
+    [[1, 1, 1], [1, 5, 1], [1, 1, 1]] / 13 is summed out explicitly, in
+    full float32 on every device."""
+    img = torch.sigmoid(params.texture)  # [6, C, L, L]
+    L = img.shape[-1]
+    pad = torch.nn.functional.pad(img, (1, 1, 1, 1))
+    k = torch.tensor([[1.0, 1.0, 1.0], [1.0, 5.0, 1.0], [1.0, 1.0, 1.0]]) / 13.0
+    blurred = sum(float(k[dy, dx]) * pad[..., dy:dy + L, dx:dx + L]
+                  for dy in range(3) for dx in range(3))
+    sharp = torch.clamp(factor * img + (1 - factor) * blurred, 0.0, 1.0)
+    out = img.clone()
+    out[..., 1:-1, 1:-1] = sharp[..., 1:-1, 1:-1]
+    out = torch.clamp(out, 1e-3, 1 - 1e-3)
+    return CubemapParams(texture=inverse_sigmoid(out), fail_value=params.fail_value)

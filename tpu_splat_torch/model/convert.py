@@ -7,7 +7,10 @@ plain numpy arrays.
 for a `TrainState` (parameters, Adam moments and count, densify stats, ISP,
 step and opacity rate). Both packages then compute on bit-identical inputs.
 The `*_to_numpy` functions go the other way, so results compare leaf by
-leaf.
+leaf. A training state carries across whatever the scheduled events and
+capacity growth change: the alive mask, rows padded to a new capacity, the
+moments and statistics, the pulsed opacity rate, a cubemap of another
+resolution; so the two packages can be compared after every event.
 """
 from __future__ import annotations
 

@@ -42,12 +42,12 @@ class RasterConfig:
     grad_channels: str = "full"  # "full" | "train" (train-shaped kernel)
     bf16_grads: bool = False
     bf16_feats: bool = False  # bf16-pair content rows in the instance slab
-    tight_culling: bool = False  # not ported
-    max_columns: int = 0
+    tight_culling: bool = False  # two-level per-column binning (run_expand)
+    max_columns: int = 0  # level-1 (tile column) capacity; 0 = max_instances
     pad_per_tile: int = 128  # per-tile pad budget of the 128-aligned layout
     opacity_rect: bool = False  # opacity-aware tile rect (output-exact)
     circular_rect: bool = False  # reference-exact circular tile rect
-    expand_mode: str = "gather"  # only "gather" is ported
+    expand_mode: str = "gather"  # "gather" | "kernel" (run_expand); "scan" not ported
 
     def __post_init__(self):
         assert self.tile_depth % self.chunk == 0
