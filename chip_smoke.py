@@ -16,9 +16,9 @@ the CPU run, then 1 + 4 steps at 1088x1920 on 1M Gaussians, each of which
 must launch all four kernels. Phase 7 drives the `--tight_culling` loop
 body (the step with two-level binning, `run_scheduled_events`,
 `check_growth`): `run_expand` bit-exact against its plain version on the
-run tables binning builds at the bench frame, tight binning of a 100k
-subset on the card against the CPU, a small loop on the card against the
-CPU event by event, 1 + 4 tight steps at 1088x1920 on 1M Gaussians (each
+run tables binning builds at the bench frame, preprocess and tight
+binning of a 100k subset on the card against the CPU (bit for bit), a
+small loop on the card against the CPU event by event, 1 + 4 tight steps at 1088x1920 on 1M Gaussians (each
 must launch `run_expand` twice and the other four kernels once), the loop
 body at iterations where every scheduled event fires, `segment_sum_rows`
 on the step's regroup rows, and a served tight frame. Each phase prints one
@@ -650,58 +650,10 @@ def instance_pairs(b) -> np.ndarray:
     return np.sort((gid * starts.numel() + tile).numpy())
 
 
-class SharedBinning:
-    """Hands one step's binning input to another: `record()` keeps the
-    preprocess outputs a step bins (detached, on the CPU), `replay()` makes
-    the next step bin those instead of its own, on its own device. The
-    second step then has the first one's instances, and every other value
-    its own."""
-
-    def __init__(self):
-        self.preps = []
-
-    def _wrap(self, fn):
-        import tpu_splat_torch.raster as raster
-
-        orig = raster.bin_gaussians
-
-        def swapped(prep, H, W, cfg):
-            return orig(fn(prep), H, W, cfg)
-
-        class Ctx:
-            def __enter__(self_):
-                raster.bin_gaussians = swapped
-
-            def __exit__(self_, *exc):
-                raster.bin_gaussians = orig
-
-        return Ctx()
-
-    def record(self):
-        self.preps = []
-
-        def keep(prep):
-            self.preps.append(type(prep)(*(x.detach().cpu() for x in prep)))
-            return prep
-
-        return self._wrap(keep)
-
-    def replay(self):
-        queue = list(self.preps)
-
-        def take(prep):
-            if not queue:
-                raise AssertionError("the replayed step bins more often than the recorded one")
-            return type(prep)(*(x.to(prep.depth.device) for x in queue.pop(0)))
-
-        return self._wrap(take)
-
-
 def knife_gaussians(ts_a, ts_b, cam_a, cam_b, cfg) -> np.ndarray:
-    """Gaussians whose instances differ between two states' binnings: a
-    tight tile-row range is a floor of the conic, and the card's and the
-    CPU's exp, log and float32 sqrt round apart, so a few ranges at that
-    knife edge move a tile."""
+    """Gaussians whose instances differ between two states' binnings (a
+    tight tile-row range is a floor of the conic, so an ulp of difference
+    in preprocess at that knife edge moves a tile)."""
     b_a = bin_view(ts_a.gaussians, cam_a, cfg)
     pa, pb = instance_pairs(b_a), instance_pairs(bin_view(ts_b.gaussians, cam_b, cfg))
     return np.unique(np.setxor1d(pa, pb) // b_a.aligned_starts.numel())
@@ -1109,12 +1061,13 @@ def main() -> int:
     timing = {}
     bkw_ = dict(full_grads=bkw["full_grads"], packed_feats=bkw["packed_feats"])
     k_ms = cuda_ms(lambda: tb.tile_blend_backward(feats, *index, fwd, ct, **bkw_), 5)
-    p_ms, (_, tested, contributing) = wall_ms(lambda: tb.tile_blend_backward_plain(
+    p_ms, (_, tested, contributing, warp_pairs) = wall_ms(lambda: tb.tile_blend_backward_plain(
         feats, *index, fwd, ct, return_pairs=True, **bkw_))
     nb, nops = bwd_bound(feats, index, fwd, bkw["packed_feats"], tested, contributing)
     timing["tile_blend_backward"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bytes=nb,
                                          ops=nops, tested_pairs=tested,
-                                         contributing_pairs=contributing)
+                                         contributing_pairs=contributing,
+                                         contributing_warp_pairs=warp_pairs)
     (sargs, _), = cap.seen["segment_sum_ranges"]
     rows, s_, e_ = sargs
     k_ms = cuda_ms(lambda: sr.segment_sum_ranges(rows, s_, e_), 10)
@@ -1203,27 +1156,38 @@ def main() -> int:
     detail["run_expand"] = expand
     del xcap
 
-    # 7b. tight binning on the card against the CPU: one preprocess output
-    # of a 100k-surfel subset at the bench view, binned on both
-    sub = dataclasses.replace(state, **{
-        f: getattr(state, f)[:TIGHT_SUBSET].cpu() for f in
-        ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "refl",
-         "alive")}, env=type(state.env)(*(x.cpu() for x in state.env)))
-    cam_c = orbit_camera(H, W, radius=6.0, azimuth=0.4, elevation=0.3, device="cpu")
+    # 7b. preprocess and tight binning on the card against the CPU: a
+    # 100k-surfel subset at the bench view, each device preprocessing (from
+    # the state's own activations) and binning on its own; what binning
+    # reads of preprocess, and every field of Binned, bit for bit
     sub_cfg = production_config(**dict(PROD, max_instances=TIGHT_SUBSET_CAP), tight_culling=True)
-    with torch.no_grad():
-        p = preprocess(sub.xyz, sub.get_scaling(), sub.rotation, cam_c.world_view,
-                       cam_c.full_proj, cam_c.camera_center, H, W, sh=sub.get_features(),
-                       sh_degree=3, opacity=sub.get_opacity())
-    b_cpu = bin_gaussians(p, H, W, sub_cfg)
-    b_card = bin_gaussians(type(p)(*(x.to(dev) for x in p)), H, W, sub_cfg)
-    bad = {f: int((getattr(b_card, f).cpu() != getattr(b_cpu, f)).sum()) for f in b_cpu._fields}
-    if any(bad.values()):
-        raise AssertionError(f"tight binning on the card differs from the CPU: {bad}")
-    log("7 tight binning card vs cpu", surfels=TIGHT_SUBSET, fields=len(bad), differing=0,
-        instances=int(b_cpu.num_instances), capacity=sub_cfg.max_instances)
-    detail["tight_card_vs_cpu"] = dict(instances=int(b_cpu.num_instances), differing=bad)
-    del p, b_cpu, b_card, sub
+    preps, bins = {}, {}
+    for d_ in ("cpu", dev):
+        s_ = dataclasses.replace(state, **{
+            f: getattr(state, f)[:TIGHT_SUBSET].to(d_) for f in
+            ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "refl",
+             "alive")}, env=type(state.env)(*(x.to(d_) for x in state.env)))
+        cam_d = orbit_camera(H, W, radius=6.0, azimuth=0.4, elevation=0.3, device=d_)
+        with torch.no_grad():
+            preps[d_] = preprocess(s_.xyz, s_.get_scaling(), s_.rotation, cam_d.world_view,
+                                   cam_d.full_proj, cam_d.camera_center, H, W,
+                                   sh=s_.get_features(), sh_degree=3, opacity=s_.get_opacity())
+        bins[d_] = bin_gaussians(preps[d_], H, W, sub_cfg)
+    prep_fields = ("hom", "xy", "depth", "normal_view", "radius", "rect_min", "rect_max",
+                   "tiles_touched", "valid")
+    bad_prep = {f: int((getattr(preps[dev], f).cpu() != getattr(preps["cpu"], f)).sum())
+                for f in prep_fields}
+    bad = {f: int((getattr(bins[dev], f).cpu() != getattr(bins["cpu"], f)).sum())
+           for f in bins["cpu"]._fields}
+    if any(bad_prep.values()) or any(bad.values()):
+        raise AssertionError(f"preprocess / tight binning on the card differ from the CPU: "
+                             f"{bad_prep} {bad}")
+    log("7 preprocess + tight binning card vs cpu", surfels=TIGHT_SUBSET,
+        preprocess_fields=len(bad_prep), binned_fields=len(bad), differing=0,
+        instances=int(bins["cpu"].num_instances), capacity=sub_cfg.max_instances)
+    detail["tight_card_vs_cpu"] = dict(instances=int(bins["cpu"].num_instances),
+                                       differing=bad, preprocess_differing=bad_prep)
+    del preps, bins, s_
 
     # 7c. the small loop on the card against the CPU: each step and each
     # iteration's events run on the card, and again on the CPU from the
@@ -1232,12 +1196,10 @@ def main() -> int:
     # in one per-instance gradient moves a sum by 2^-8 of its terms, which
     # put one row of a cancelling sum 3.4e-2 of its leaf's max apart on the
     # card (phase 6b holds the production step; 7d runs it at full width).
-    # The CPU step bins the card step's preprocess output (SharedBinning):
-    # the card's exp, log and float32 sqrt round apart from the CPU's, and a
-    # tight tile-row range is a floor of the conic, so a few Gaussians at
-    # that knife edge would get other instances (knife_gaussians, counted
-    # and reported); on the card's instances every gradient row is held at
-    # slice 2's tolerance, and 7b holds the binning itself card = CPU
+    # Each device bins its own preprocess output, which rounds alike on
+    # both (7b): equal instance counts at every iteration, the Gaussians
+    # whose instances differ counted (knife_gaussians), and every gradient
+    # row held at slice 2's tolerance
     small_cfg = production_config(**SMALL, tight_culling=True, bf16_grads=False,
                                   bf16_feats=False)
     lopt = OptimizationParams(**SMALL_LOOP_OPT)
@@ -1250,18 +1212,15 @@ def main() -> int:
     steps_s = {d_: make_train_step(lopt, small_cfg, 1.0, isp_cfg=isp) for d_ in ("cpu", dev)}
     small_loop = []
     logs = {d_: tloop.EventLog() for d_ in ("cpu", dev)}
-    shared = SharedBinning()
     for it in range(1, SMALL_LOOP_ITERS + 1):
         ts_c = pre_c = ts_to_device(ts, "cpu")
-        run = {}
-        for d_, t_, ctx in ((dev, ts, shared.record), ("cpu", ts_c, shared.replay)):
-            with ctx():
-                run[d_] = steps_s[d_](t_, cam_s[d_], torch.tensor(gt_np, device=d_),
-                                      torch.zeros(3, device=d_), frame_idx=1)
+        run = {d_: steps_s[d_](t_, cam_s[d_], torch.tensor(gt_np, device=d_),
+                               torch.zeros(3, device=d_), frame_idx=1)
+               for d_, t_ in ((dev, ts), ("cpu", ts_c))}
         (ts, aux_g), (ts_c, aux_c) = run[dev], run["cpu"]
         if int(aux_g.num_instances) != int(aux_c.num_instances):
-            raise AssertionError(f"small loop iteration {it}: the shared binning gave "
-                                 f"{int(aux_g.num_instances)} vs {int(aux_c.num_instances)}")
+            raise AssertionError(f"small loop iteration {it}: {int(aux_g.num_instances)} "
+                                 f"instances on the card, {int(aux_c.num_instances)} on the CPU")
         # loss and l1 relative; ssim absolute: against random ground truth it
         # is ~0.02, and the loss takes 1 - ssim
         rec = {f: abs(float(getattr(aux_g, f)) - float(getattr(aux_c, f)))

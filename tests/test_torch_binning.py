@@ -18,8 +18,8 @@ Tolerances:
   capacity that is not a multiple of 4096 (both packages then bin by
   gather with tight culling off); at 1088x1920 on 100k surfels, exactly
   equal on the JAX package's jitted preprocess output, and the port's own
-  preprocess + binning exactly equal to the JAX package's eager preprocess
-  + binning (its jitted preprocess rounds apart: ROADMAP Queue C);
+  preprocess + binning exactly equal to the JAX package's jitted
+  preprocess + binning, as its trainer runs them;
 - segment_sum_rows: 1e-6 of each column's max |sum| (the JAX kernel sums a
   run as an f32 MXU product, the port in run order).
 """
@@ -213,10 +213,8 @@ def test_tight_binning_at_bench_size():
     100k surfels as chip_smoke.py draws it) from the bench view, production
     switches: the port's binning of the JAX package's jitted preprocess
     output is exact, and so is the port's whole preprocess + binning
-    against the JAX package's preprocess run op by op. The JAX package's
-    jitted preprocess fuses products of its rotation and homography into
-    FMAs and so rounds apart from its own eager run; the instances that
-    moves are printed (ROADMAP Queue C)."""
+    against the JAX package's jitted preprocess + binning, the camera passed
+    as an argument as its trainer passes it (343,575 instances)."""
     from tpu_splat.raster.config import production_config as j_production
     from tpu_splat_torch.raster.preprocess import preprocess as t_preprocess
 
@@ -234,14 +232,11 @@ def test_tight_binning_at_bench_size():
     cam = orbit_camera(Hb, Wb, radius=6.0, azimuth=0.4, elevation=0.3)
     kw = dict(max_tiles_per_gaussian=32, max_instances=401_408, tile_depth=2048, chunk=32,
               tight_culling=True)
-    args = (jnp.asarray(xyz), jnp.asarray(scales), jnp.asarray(rot), cam.world_view,
-            cam.full_proj, cam.camera_center, Hb, Wb)
     pre_kw = dict(colors=jnp.zeros((n, 3)), opacity=jnp.asarray(opa))
-    j_jit = jax.jit(lambda x, s, r: preprocess(x, s, r, *args[3:], **pre_kw))(*args[:3])
-    j_eager = preprocess(*args, **pre_kw)
+    j_jit = jax.jit(lambda x, s, r, wv, fp, cc: preprocess(x, s, r, wv, fp, cc, Hb, Wb, **pre_kw))(
+        xyz, scales, rot, cam.world_view, cam.full_proj, cam.camera_center)
     jcfg = j_production(backend="pallas", **kw)
-    jbin = jax.jit(lambda p: j_bin(p, Hb, Wb, jcfg, aligned=True))
-    want_jit, want_eager = jbin(j_jit), jbin(j_eager)
+    want = jax.jit(lambda p: j_bin(p, Hb, Wb, jcfg, aligned=True))(j_jit)
     tc = tcfg.production_config(**kw)
     got_on_jit = t_bin(Preprocessed(*(_t(getattr(j_jit, f)) for f in Preprocessed._fields)),
                        Hb, Wb, tc)
@@ -249,16 +244,13 @@ def test_tight_binning_at_bench_size():
     tprep = t_preprocess(_t(xyz), _t(scales), _t(rot), tcam["world_view"], tcam["full_proj"],
                          tcam["camera_center"], Hb, Wb, colors=torch.zeros((n, 3)),
                          opacity=_t(opa))
+    for f in ("hom", "xy", "depth", "rect_min", "rect_max", "tiles_touched", "valid"):
+        np.testing.assert_array_equal(getattr(tprep, f).numpy(), np.asarray(getattr(j_jit, f)),
+                                      err_msg=f)
     got = t_bin(tprep, Hb, Wb, tc)
     for f in Binned._fields:
-        np.testing.assert_array_equal(getattr(got_on_jit, f).numpy(),
-                                      np.asarray(getattr(want_jit, f)), err_msg=f)
-        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want_eager, f)),
+        np.testing.assert_array_equal(getattr(got_on_jit, f).numpy(), np.asarray(getattr(want, f)),
                                       err_msg=f)
-    moved = {f: int((np.asarray(getattr(want_jit, f)) != np.asarray(getattr(want_eager, f))).sum())
-             for f in ("num_instances", "tile_counts")}
-    moved.update({f: int((np.asarray(getattr(j_jit, f)) != np.asarray(getattr(j_eager, f))).sum())
-                  for f in ("rect_min", "rect_max", "tiles_touched", "valid")})
-    print(f"tight instances: JAX jitted {int(want_jit.num_instances)}, JAX eager and port "
-          f"{int(got.num_instances)}; entries moved by the jitted rounding: {moved}")
-    assert int(got.num_instances) > 0.8 * kw["max_instances"]
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert int(got.num_instances) == 343_575

@@ -23,7 +23,8 @@ atomics add in run-dependent order). run_expand: rows and j bit-exact (a
 copy). segment_sum_rows: 1e-6 of each column's max |sum| (both sum each run
 in order). Tight binning on the card against the CPU: every field exact.
 The training step on the card against the CPU run: losses 1e-5 relative, every gradient 1e-2 of its leaf's max
-(the production bf16 regroup; tests/test_torch_train.py).
+(the production bf16 regroup; tests/test_torch_train.py). Preprocess on
+the card against the CPU: what binning reads, bit for bit.
 """
 import itertools
 import os
@@ -327,6 +328,110 @@ def test_segment_sum_and_cubemap_kernels_match_plain_on_card():
         got = ca.cubemap_tap_accumulate(*a, L=L, C=C)
         want = ca.cubemap_tap_accumulate_plain(*a, L=L, C=C)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("generic", [False, True], ids=["separable", "generic"])
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("pattern", ["one_texel", "distinct", "neighbours"])
+def test_cubemap_kernel_contention_on_card(pattern, L, generic):
+    """The block-table kernel against the plain version: every pixel's taps
+    on one texel (the worst contention), every pixel on texels of its own
+    (with the generic taps, more texels a block than its table holds), and
+    runs of neighbouring pixels sharing cells as a smooth reflector gives
+    them; every L the step serves, with and without the generic taps."""
+    _need_card()
+    rng = np.random.default_rng(L + 7 * generic)
+    C, n = 3, 8192 + 13  # a ragged last warp
+    if pattern == "one_texel":
+        r0 = np.full(n, 3 * L + 5)
+        c0 = np.full(n, L // 2)
+        r1, c1 = r0, c0
+    elif pattern == "distinct":
+        cell = rng.permutation(6 * (L // 2) * (L // 2))[:n]
+        r0, c0 = 2 * (cell // (L // 2)), 2 * (cell % (L // 2))
+        r1, c1 = r0 + 1, c0 + 1
+    else:
+        cell = np.repeat(rng.integers(0, 6 * L * (L - 1), (n + 19) // 20), 20)[:n]
+        r0, c0 = cell // (L - 1), cell % (L - 1)
+        r1, c1 = r0 + 1, c0 + 1
+    dev = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt, device="cuda")
+    i32, f32 = torch.int32, torch.float32
+    m = (rng.uniform(size=n) < 0.8).astype(np.float32) if generic else np.ones(n, np.float32)
+    if generic:
+        same = pattern == "one_texel"
+        taps = (dev(np.broadcast_to(r0, (4, n)) if same else rng.integers(0, 6 * L, (4, n)), i32),
+                dev(np.broadcast_to(c0, (4, n)) if same else rng.integers(0, L, (4, n)), i32),
+                dev(rng.uniform(size=(4, n)) * (1 - m), f32))
+    else:
+        taps = (None, None, None)
+    args = (dev(rng.normal(size=(n, C)), f32), *taps, dev(r0, i32), dev(r1, i32),
+            dev(c0, i32), dev(c1, i32), dev(rng.uniform(size=n), f32),
+            dev(rng.uniform(size=n), f32), dev(m, f32))
+    before = LAUNCHES["cubemap_tap_accumulate"]
+    got = ca.cubemap_tap_accumulate(*args, L=L, C=C)
+    assert LAUNCHES["cubemap_tap_accumulate"] == before + 1
+    want = ca.cubemap_tap_accumulate_plain(*args, L=L, C=C)
+    assert got.shape == (6 * L * L, C)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_tile_blend_backward_multi_chunk_tiles_on_card():
+    """All four variants on tiles that hold more than one 128-instance chunk
+    with contributors in several chunks (semi-transparent splats)."""
+    _need_card()
+    feats, index = _kernel_inputs(_scene(900, 11, opacity=-1.5), "cuda")
+    assert int(index[1].max()) > 2 * tb.CI
+    g = torch.Generator().manual_seed(1)
+    for full, packed in itertools.product((True, False), repeat=2):
+        fwd, _ = tb.tile_blend_forward(feats[packed], *index, train_shape=not full,
+                                       packed_feats=packed)
+        assert int(tb._used_chunks(fwd, index[1]).max()) > 1
+        ct = torch.randn(fwd.shape, generator=g).to("cuda")
+        d_k = tb.tile_blend_backward(feats[packed], *index, fwd, ct, full_grads=full,
+                                     packed_feats=packed)
+        d_p = tb.tile_blend_backward_plain(feats[packed], *index, fwd, ct, full_grads=full,
+                                           packed_feats=packed)
+        a, b = _unpacked_rows(d_k, packed).cpu(), _unpacked_rows(d_p, packed).cpu()
+        scale = b.abs().amax(1, keepdim=True)
+        assert bool(((a - b).abs() <= 1e-3 * scale).all()), (full, packed)
+
+
+def _bench_cloud(n, seed=0):
+    """The bench cloud of chip_smoke.build_state's geometry, as numpy."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    log_s = (-4.8 + 0.5 * rng.normal(size=(n, 2))).astype(np.float32)
+    rot = (np.stack([np.ones(n), 0.4 * np.sin(1.3 * xyz[:, 0]), 0.4 * np.cos(1.1 * xyz[:, 1]),
+                     0.4 * np.sin(0.9 * xyz[:, 2])], axis=1)
+           + 0.05 * rng.normal(size=(n, 4))).astype(np.float32)
+    logit = rng.uniform(-1, 2, (n, 1)).astype(np.float32)
+    return xyz, log_s, rot, logit
+
+
+@pytest.mark.gpu
+def test_preprocess_on_card_bit_identical_to_cpu():
+    """What binning reads of preprocess (and the view normal), from the
+    state's own activations, has the same bits on the card and the CPU on a
+    seeded 10k cloud at 1088x1920, opacity-aware rects on."""
+    _need_card()
+    from tpu_splat_torch.core import f32
+
+    xyz, log_s, rot, logit = _bench_cloud(10_000)
+    out = {}
+    for d in ("cpu", "cuda"):
+        t = lambda a: torch.from_numpy(a).to(d)
+        cam = orbit_camera(1088, 1920, radius=6.0, azimuth=0.4, elevation=0.3, device=d)
+        p = preprocess(t(xyz), f32.exp(t(log_s)), t(rot), cam.world_view, cam.full_proj,
+                       cam.camera_center, 1088, 1920, colors=torch.zeros((len(xyz), 3), device=d),
+                       opacity=f32.sigmoid(t(logit)[:, 0]))
+        out[d] = p
+    for f in ("hom", "xy", "depth", "normal_view", "radius", "rect_min", "rect_max",
+              "tiles_touched", "valid"):
+        np.testing.assert_array_equal(getattr(out["cuda"], f).cpu().numpy(),
+                                      getattr(out["cpu"], f).numpy(), err_msg=f)
+    assert int(out["cpu"].tiles_touched.sum()) > 10_000
 
 
 @pytest.mark.gpu

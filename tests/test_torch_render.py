@@ -4,7 +4,9 @@ The same numpy-seeded scene goes through both packages; the JAX side runs
 its Pallas kernels in interpret mode (backend="pallas"), the port its plain
 PyTorch kernel versions. Each JAX reference is computed once per module.
 
-Tolerances: preprocess ints exact, floats 1e-5 relative (PARITY.md);
+Tolerances: preprocess against the jitted JAX preprocess: ints, the
+homography, centre, depth and view normal exact, the SH colour 1e-5
+relative (PARITY.md);
 binning integers exact; render_fast render/alpha/refl_strength 2e-5 abs;
 the normal 2e-5 abs on pixels with alpha > 0.02 or alpha = 0 (normalizing
 divides the blended normal, whose length is at most alpha, so f32 noise in
@@ -14,6 +16,7 @@ frame); cubemap samples 1e-6; loaded PLY arrays equal.
 import os
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -126,18 +129,27 @@ def _prep_args(scene):
     return ja, ta
 
 
+def _jit_preprocess(ja, sh, opacity):
+    """The JAX package's preprocess jitted with the camera as an argument,
+    as its trainer and `render_fast` run it."""
+    f = jax.jit(lambda x, s, r, wv, fp, cc, sh, o: preprocess(
+        x, s, r, wv, fp, cc, H, W, sh=sh, sh_degree=1, opacity=o))
+    return f(*ja[:6], sh, opacity)
+
+
 @pytest.mark.parametrize("opacity_rect", [False, True])
 def test_preprocess_matches_jax(scene, opacity_rect):
     ja, ta = _prep_args(scene)
     jo = scene["jstate"].get_opacity() if opacity_rect else None
     to = scene["tstate"].get_opacity() if opacity_rect else None
-    a = preprocess(*ja, sh=scene["jstate"].get_features(), sh_degree=1, opacity=jo)
+    a = _jit_preprocess(ja, scene["jstate"].get_features(), jo)
     b = t_preprocess(*ta, sh=scene["tstate"].get_features(), sh_degree=1, opacity=to)
-    for f in ("radius", "rect_min", "rect_max", "tiles_touched", "valid"):
+    # what binning reads rounds as the jitted JAX code: equal bits
+    for f in ("radius", "rect_min", "rect_max", "tiles_touched", "valid", "hom", "xy", "depth",
+              "normal_view"):
         np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(a, f)), err_msg=f)
-    for f in ("hom", "xy", "depth", "normal_view", "color"):
-        x, y = np.asarray(getattr(a, f)), getattr(b, f).numpy()
-        np.testing.assert_allclose(y, x, rtol=1e-5, atol=1e-5 * np.abs(x).max(), err_msg=f)
+    x, y = np.asarray(a.color), b.color.numpy()
+    np.testing.assert_allclose(y, x, rtol=1e-5, atol=1e-5 * np.abs(x).max(), err_msg="color")
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -146,7 +158,7 @@ def test_bin_gaussians_integers_exact(scene, name):
     ja, ta = _prep_args(scene)
     jo = scene["jstate"].get_opacity() if jc.opacity_rect else None
     to = scene["tstate"].get_opacity() if tc.opacity_rect else None
-    a = preprocess(*ja, sh=scene["jstate"].get_features(), sh_degree=1, opacity=jo)
+    a = _jit_preprocess(ja, scene["jstate"].get_features(), jo)
     a = a._replace(valid=a.valid & scene["jstate"].alive)
     a = a._replace(tiles_touched=jnp.where(a.valid, a.tiles_touched, 0))
     b = t_preprocess(*ta, sh=scene["tstate"].get_features(), sh_degree=1, opacity=to)

@@ -31,21 +31,37 @@
 // pixel makes no alpha test for ranks past its n_contrib.
 //
 // Each instance lives in one tile only, so its gradient is a reduction over
-// the block's 256 pixels: warp shuffles (skipped when no lane of the warp
-// has the instance as a contributor), then the 8 warp partials summed in
-// shared memory in a fixed order, 32 instances at a time. One thread per
-// instance then runs the coefficient-space chain (recentering, the dn dots,
-// the cross-product VJPs) back to the raw rows and writes d_feats[:, i]
-// once. No atomics: the regroup into per-Gaussian gradients runs after this
-// kernel. full_grads adds the distortion / M1 / M2 / median chains; packed
-// slabs read bf16-pair content rows and write the content gradients as
-// round-to-nearest-even bf16 pairs (c[k] high half, c[k+4] low half).
+// the block's 256 pixels, SUB instances at a time: per warp a transposed
+// butterfly (below), then the warp partials summed in shared memory in a
+// fixed warp order. One thread per instance then runs the coefficient-space
+// chain (recentering, the dn dots, the cross-product VJPs) back to the raw
+// rows and writes d_feats[:, i] once. No atomics: the regroup into
+// per-Gaussian gradients runs after this kernel. full_grads adds the
+// distortion / M1 / M2 / median chains; packed slabs read bf16-pair content
+// rows and write the content gradients as round-to-nearest-even bf16 pairs
+// (c[k] high half, c[k+4] low half).
 //
 // Bound on this card: operations. Every (instance, pixel) pair up to the
 // pixel's n_contrib costs the forward's ~40-op alpha test; per contributing
-// pair the reverse step adds ~70 f32 operations and the 26-value warp
-// reduction; the slab, fwd_px, ct_px and
-// d_feats bytes are ~1 GB at the bench frame.
+// pair the reverse step adds ~70 f32 operations and its share of the 26
+// per-instance sums; the slab, fwd_px, ct_px and d_feats bytes are 0.62 GB
+// at the bench step.
+//
+// What held the first design back (8.3 ms against a 0.41 ms bound at the
+// bench step): each (instance, warp) with a contributing lane summed its 26
+// values with 26 xor-butterflies, 130 shuffles, and every (instance, warp)
+// then had lane 0 store 26 partials (zeros when no lane contributed), all on
+// the shared-memory pipe (7.6M of the 30M (instance, warp) pairs hold a
+// contributor; a build whose reduction is one shuffle ran in 5.3 ms, and
+// the pair arithmetic is most of the rest). The redesign keeps the pair arithmetic and cuts
+// that pipe's work: the 26 values, padded to 32, go through one transposed
+// butterfly (16 + 8 + 4 + 2 + 1 = 31 shuffles, after which lane k holds sum
+// k), each lane stores its own sum, and a warp with no contributor stores
+// only a zero flag, which the fixed-order sum over warps skips. The launch
+// bound asks for three blocks an SM (80 registers; the first design's 107
+// allowed two), and the warp partials of 64 instances a round take 53 KB
+// of dynamic shared memory. BWD_SUB (instances a round) and BWD_MIN_BLOCKS
+// (blocks an SM) are compile-time knobs that kernel_ab.py times.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (tpu_splat_torch/kernels/build.py).
@@ -59,8 +75,18 @@ constexpr int TILE = 16;
 constexpr int NPIX = TILE * TILE;
 constexpr int CI = 128;
 constexpr int NWARP = NPIX / 32;
-constexpr int SUB = 32;  // instances per shared-memory reduction round
+#ifndef BWD_SUB
+#define BWD_SUB 64
+#endif
+#ifndef BWD_MIN_BLOCKS
+#define BWD_MIN_BLOCKS 3
+#endif
+constexpr int SUB = BWD_SUB;  // instances per shared-memory reduction round
+static_assert(CI % SUB == 0 && SUB <= NPIX, "SUB divides the chunk");
 constexpr int NSUM = 26;
+constexpr unsigned ALL_LANES = 0xffffffffu;
+// s_part[NWARP][NSUM][SUB] in dynamic shared memory
+constexpr int PART_BYTES = NWARP * NSUM * SUB * (int)sizeof(float);
 
 constexpr float NEAR_N = 0.2f;
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
@@ -119,10 +145,28 @@ __device__ __forceinline__ void derive(const float* f, long long n_cap,
   q.s0 = q.lo - (q.sx * q.sx + q.sy * q.sy) * (0.5 / (double)FI);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One round of the transposed butterfly over v[0, 2*O): a lane keeps the
+// half of the values its bit O selects and adds its xor-partner's copy of
+// that half, which the partner sends in one shuffle a value.
+template <int O>
+__device__ __forceinline__ void transpose_round(float (&v)[32], bool hi) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int j = 0; j < O; ++j) {
+    const float send = hi ? v[j] : v[j + O];
+    const float keep = hi ? v[j + O] : v[j];
+    v[j] = keep + __shfl_xor_sync(ALL_LANES, send, O);
+  }
+}
+
+// Sum of v[k] over the warp's lanes for every k < 32, in 31 shuffles: lane
+// k returns sum k.
+__device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
+  transpose_round<16>(v, lane & 16);
+  transpose_round<8>(v, lane & 8);
+  transpose_round<4>(v, lane & 4);
+  transpose_round<2>(v, lane & 2);
+  transpose_round<1>(v, lane & 1);
+  return v[0];
 }
 
 // bf16 round-to-nearest-even of two floats packed (a high | b low) into one
@@ -137,7 +181,7 @@ __device__ __forceinline__ float pack2(float a, float b) {
 }
 
 template <bool FULL, bool PACKED>
-__global__ void __launch_bounds__(NPIX)
+__global__ void __launch_bounds__(NPIX, BWD_MIN_BLOCKS)
 tile_blend_bwd_kernel(const float* __restrict__ feats, long long n_cap,
                       const int* __restrict__ starts,
                       const int* __restrict__ counts,
@@ -154,7 +198,9 @@ tile_blend_bwd_kernel(const float* __restrict__ feats, long long n_cap,
   __shared__ float s_tw2[CI];
   __shared__ float4 s_c0[CI];  // colour 0..2, normal 0
   __shared__ float4 s_c1[CI];  // normal 1..2, refl, (scope)
-  __shared__ float s_part[NWARP][NSUM][SUB];
+  __shared__ unsigned char s_has[NWARP][SUB];  // the warp stored sums
+  extern __shared__ float s_dyn[];
+  float(*s_part)[NSUM][SUB] = reinterpret_cast<float(*)[NSUM][SUB]>(s_dyn);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -229,9 +275,9 @@ tile_blend_bwd_kernel(const float* __restrict__ feats, long long n_cap,
     for (int sub = CI / SUB - 1; sub >= 0; --sub) {
       for (int il = SUB - 1; il >= 0; --il) {
         const int i = sub * SUB + il;
-        float v[NSUM];
+        float v[32];
 #pragma unroll
-        for (int k = 0; k < NSUM; ++k) v[k] = 0.f;
+        for (int k = 0; k < 32; ++k) v[k] = 0.f;
         const float rank = (float)(ci * CI + i + 1);
         bool contrib = false;
         // ranks past the pixel's n_contrib cannot contribute: no alpha test
@@ -319,22 +365,22 @@ tile_blend_bwd_kernel(const float* __restrict__ feats, long long n_cap,
             for (int k = 0; k < 7; ++k) v[S_CON + k] = ct7[k] * w;
           }
         }
-        if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-          for (int k = 0; k < NSUM; ++k) v[k] = warp_sum(v[k]);
+        const bool any = __any_sync(ALL_LANES, contrib);
+        if (any) {
+          const float sum = transpose_sum(v, lane);
+          if (lane < NSUM) s_part[warp][lane][il] = sum;
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int k = 0; k < NSUM; ++k) s_part[warp][k][il] = v[k];
-        }
+        if (lane == 0) s_has[warp][il] = any;
       }
       __syncthreads();
-      // the 8 warp partials, summed in warp order
+      // the warp partials, summed in warp order (a warp without a
+      // contributor adds nothing)
       for (int e = tid; e < NSUM * SUB; e += NPIX) {
         const int k = e / SUB, il = e % SUB;
-        float acc = s_part[0][k][il];
+        float acc = 0.f;
 #pragma unroll
-        for (int w8 = 1; w8 < NWARP; ++w8) acc += s_part[w8][k][il];
+        for (int w8 = 0; w8 < NWARP; ++w8)
+          if (s_has[w8][il]) acc += s_part[w8][k][il];
         s_part[0][k][il] = acc;
       }
       __syncthreads();
@@ -417,7 +463,11 @@ cudaError_t launch(const float* feats, long long n_cap, const int* starts,
                    const int* counts, const int* used, const int* org_x,
                    const int* org_y, const float* fwd_px, const float* ct_px,
                    int n_tiles, float* d_feats, cudaStream_t stream) {
-  tile_blend_bwd_kernel<FULL, PACKED><<<n_tiles, NPIX, 0, stream>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_blend_bwd_kernel<FULL, PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, PART_BYTES);
+  if (err != cudaSuccess) return err;
+  tile_blend_bwd_kernel<FULL, PACKED><<<n_tiles, NPIX, PART_BYTES, stream>>>(
       feats, n_cap, starts, counts, used, org_x, org_y, fwd_px, ct_px, d_feats);
   return cudaGetLastError();
 }

@@ -70,7 +70,7 @@ def _finish(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
     os.replace(tmp, out)
     BUILD_LOG[name] = {
         "seconds": time.perf_counter() - t0,
-        "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln],
+        "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln],
         "path": str(out),
     }
 

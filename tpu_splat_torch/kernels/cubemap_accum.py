@@ -10,7 +10,8 @@ its 4 stored generic taps (zero weights for separable pixels).
 
 The TPU kernel's `supported_resolution` gate is a VMEM limit; the port
 serves every L. `cubemap_tap_accumulate` runs the CUDA kernel
-(csrc/cubemap_accum.cu, float atomics) on CUDA tensors and the plain
+(csrc/cubemap_accum.cu: a texel table per block, flushed with float
+atomics) on CUDA tensors and the plain
 PyTorch version beside it on CPU tensors.
 """
 from __future__ import annotations

@@ -455,8 +455,9 @@ def _bwd_tiles_plain(feats, start, count, used, org_x, org_y, fwd, ct,
     suffix sums as flipped cumsums and the pixel-basis projections as sums.
     Returns the (instance, pixel) pairs the backward must test on these
     tiles (each pixel's ranks up to its n_contrib: no later pair can
-    contribute) and the contributing pairs among them, the work its bound
-    counts."""
+    contribute), the contributing pairs among them, the work its bound
+    counts, and the (instance, warp of 32 pixels) pairs holding a
+    contributor, the per-instance reductions the kernel makes."""
     dev, dt = feats.device, feats.dtype
     n_cap = feats.shape[1]
     B = start.shape[0]
@@ -476,6 +477,7 @@ def _bwd_tiles_plain(feats, start, count, used, org_x, org_y, fwd, ct,
     Bc = ct[:, O_T] * T_final
     tested = torch.zeros((), dtype=torch.int64, device=dev)
     contributing = torch.zeros((), dtype=torch.int64, device=dev)
+    warp_pairs = torch.zeros((), dtype=torch.int64, device=dev)
     n_rev = int(used.max()) if B else 0
     for ci_rev in range(n_rev):
         active = ci_rev < used  # [B]
@@ -510,6 +512,7 @@ def _bwd_tiles_plain(feats, start, count, used, org_x, org_y, fwd, ct,
                    & (rank <= ncon[:, None]))
         tested += (valid[..., None] & (rank <= ncon[:, None])).sum()
         contributing += contrib.sum()
+        warp_pairs += contrib.reshape(B, CI, -1, 32).any(-1).sum()
         lf = torch.where(contrib, -torch.log1p(-alpha), 0.0)
         T_i = T_rev[:, None] * torch.exp(_suffix_incl(lf, 1))
         w = torch.where(contrib, alpha * T_i, 0.0)
@@ -593,7 +596,7 @@ def _bwd_tiles_plain(feats, start, count, used, org_x, org_y, fwd, ct,
         Bc = Bc + bterm.sum(1)
         if full_grads:
             Wsuf, MWsuf, M2Wsuf = Wsuf + w.sum(1), MWsuf + mw.sum(1), M2Wsuf + m2w.sum(1)
-    return tested, contributing
+    return tested, contributing, warp_pairs
 
 
 def tile_blend_backward_plain(feats, starts, counts, org_x, org_y, fwd_px, ct_px,
@@ -602,22 +605,22 @@ def tile_blend_backward_plain(feats, starts, counts, org_x, org_y, fwd_px, ct_px
     """The plain PyTorch version of `tile_blend_backward`, on any device:
     tiles in batches of PLAIN_TILE_BATCH // 2, ordered by used chunks.
     return_pairs adds the (instance, pixel) pairs the backward must test on
-    these inputs (ranks up to each pixel's n_contrib) and the contributing
-    pairs among them."""
+    these inputs (ranks up to each pixel's n_contrib), the contributing
+    pairs among them and the (instance, warp) pairs holding a contributor."""
     T = starts.shape[0]
     d_feats = torch.zeros_like(feats)
     used = _used_chunks(fwd_px, counts)
     order = torch.argsort(used.long(), descending=True, stable=True)
     nb = PLAIN_TILE_BATCH // 2
-    tested = contributing = 0
+    pairs = (0, 0, 0)
     for b0 in range(0, T, nb):
         sel = order[b0 : b0 + nb]
-        t, c = _bwd_tiles_plain(feats, starts[sel], counts[sel], used[sel], org_x[sel],
-                                org_y[sel], fwd_px[sel], ct_px[sel], full_grads,
-                                packed_feats, d_feats)
-        tested, contributing = tested + t, contributing + c
+        p = _bwd_tiles_plain(feats, starts[sel], counts[sel], used[sel], org_x[sel],
+                             org_y[sel], fwd_px[sel], ct_px[sel], full_grads,
+                             packed_feats, d_feats)
+        pairs = tuple(a + b for a, b in zip(pairs, p))
     if return_pairs:
-        return d_feats, int(tested), int(contributing)
+        return (d_feats, *(int(x) for x in pairs))
     return d_feats
 
 

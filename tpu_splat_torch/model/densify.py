@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.core.transforms import l2_norm, quat_to_rotmat
 from tpu_splat_torch.model.optim import AdamState
 from tpu_splat_torch.model.state import GaussianState
@@ -93,7 +94,7 @@ def densify_and_prune(
     read: the counts come back as tensors)."""
     P = state.capacity
     alive = state.alive
-    scaling = torch.exp(state.scaling)  # [P, 2]
+    scaling = f32.exp(state.scaling)  # [P, 2]
     max_scale = scaling.max(-1).values
     zero = torch.zeros_like(max_scale)
 
@@ -122,7 +123,7 @@ def densify_and_prune(
     e = eps.to(state.xyz.device) * scaling[None]  # [N, P, 2]
     offs = R[None, :, :, 0] * e[..., 0:1] + R[None, :, :, 1] * e[..., 1:2]  # [N, P, 3]
     split_xyz = state.xyz[None] + offs
-    split_scaling = torch.log(scaling / (0.8 * N))
+    split_scaling = f32.log(scaling / (0.8 * N))
     cand_mask = torch.cat([clone_sel, split_sel, split_sel])  # [3P]
 
     # free-row compaction: the k-th candidate goes to the k-th free row (in

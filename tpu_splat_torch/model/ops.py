@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.core.transforms import inverse_sigmoid
 from tpu_splat_torch.envmap.cubemap import resize_cubemap, sharpen_cubemap
 from tpu_splat_torch.model.optim import AdamState, reset_moments
@@ -31,7 +32,7 @@ def _masked(new, old, exclusive_msk):
 def reset_refl(state: GaussianState, opt_state: AdamState, init_refl_value: float,
                exclusive_msk=None):
     """Floor refl at its init value (reference reset_refl :264-269)."""
-    new = inverse_sigmoid(torch.clamp(torch.sigmoid(state.refl), min=init_refl_value))
+    new = inverse_sigmoid(torch.clamp(f32.sigmoid(state.refl), min=init_refl_value))
     new = _masked(new, state.refl, exclusive_msk)
     return dataclasses.replace(state, refl=new), reset_moments(opt_state, "refl")
 
@@ -40,7 +41,7 @@ def reset_refl(state: GaussianState, opt_state: AdamState, init_refl_value: floa
 def reset_opacity(state: GaussianState, opt_state: AdamState, reset_value: float = 0.01,
                   exclusive_msk=None):
     """Cap opacity at reset_value (reference reset_opacity :271-276)."""
-    act = torch.clamp(torch.sigmoid(state.opacity), max=reset_value)
+    act = torch.clamp(f32.sigmoid(state.opacity), max=reset_value)
     new = inverse_sigmoid(torch.clamp(act, 1e-7, 1 - 1e-7))
     new = _masked(new, state.opacity, exclusive_msk)
     return dataclasses.replace(state, opacity=new), reset_moments(opt_state, "opacity")
@@ -68,11 +69,11 @@ def reset_scale(state: GaussianState, opt_state: AdamState, enlarge_scale: float
                 exclusive_msk=None):
     """Enlarge all but the smallest axis, the first of equal ones
     (reference reset_scale :286-294)."""
-    scales = torch.exp(state.scaling)
+    scales = f32.exp(state.scaling)
     min_axis = torch.argmin(scales, dim=-1)
     factor = torch.full_like(scales, enlarge_scale)
     factor[torch.arange(scales.shape[0], device=scales.device), min_axis] = 1.0
-    new = _masked(torch.log(scales * factor), state.scaling, exclusive_msk)
+    new = _masked(f32.log(scales * factor), state.scaling, exclusive_msk)
     return dataclasses.replace(state, scaling=new), reset_moments(opt_state, "scaling")
 
 

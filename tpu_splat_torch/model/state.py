@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from tpu_splat_torch.core.device import resolve_device
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.core.sh import num_sh_coeffs, rgb_to_sh
 from tpu_splat_torch.envmap.cubemap import CubemapParams, init_cubemap
 
@@ -56,11 +57,11 @@ class GaussianState:
         return int(self.alive.sum())
 
     def get_scaling(self) -> torch.Tensor:
-        return torch.exp(self.scaling)
+        return f32.exp(self.scaling)
 
     def get_opacity(self) -> torch.Tensor:
         """[P] sigmoid opacity, zeroed for dead rows."""
-        return torch.sigmoid(self.opacity[:, 0]) * self.alive
+        return f32.sigmoid(self.opacity[:, 0]) * self.alive
 
     def get_refl(self) -> torch.Tensor:
         return torch.sigmoid(self.refl[:, 0])

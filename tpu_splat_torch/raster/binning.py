@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.core.device import stage
 from tpu_splat_torch.kernels.run_expand import BLK as EXPAND_BLK, run_expand
 from tpu_splat_torch.raster.config import CUTOFF, FILTER_SIZE, TILE, RasterConfig, tile_grid
@@ -90,25 +91,8 @@ def _run_starts(offsets: torch.Tensor, emitting: torch.Tensor, n_out: int) -> to
     return torch.clamp(_run_ranks(offsets, emitting, n_out)[::128], min=0).to(torch.int32)
 
 
-# -- float32 arithmetic with the bits of the JAX package on the CPU. Its
-# jitted elementwise chains contract a product into the add that consumes it
-# (x*y - z*w becomes fma(x, y, -(z*w)); which product is fused was read off
-# its results), and its sqrt is correctly rounded; PyTorch's CPU float32
-# sqrt is not. Each helper evaluates in float64, where the float32 product
-# is exact, and rounds once to float32.
-
-def _f64(x):
-    return x.double() if isinstance(x, torch.Tensor) else float(x)
-
-
-def _fma(x, y, z) -> torch.Tensor:
-    """float32 x*y + z rounded once."""
-    return (_f64(x) * _f64(y) + _f64(z)).float()
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(x.double()).float()
-
+# -- float32 arithmetic with the bits of the JAX package's jitted CPU code
+# (core/f32.py): which product of x*y - z*w is fused was read off its results.
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """jnp.cross as the JAX package computes it: each a_i*b_j - a_k*b_l is
@@ -116,7 +100,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a0, a1, a2 = a.unbind(-1)
     b0, b1, b2 = b.unbind(-1)
     return torch.stack(
-        [_fma(a1, b2, -(a2 * b1)), _fma(a2, b0, -(a0 * b2)), _fma(a0, b1, -(a1 * b0))], -1
+        [f32.fma(a1, b2, -(a2 * b1)), f32.fma(a2, b0, -(a0 * b2)), f32.fma(a0, b1, -(a1 * b0))], -1
     )
 
 
@@ -148,19 +132,19 @@ def _conic_column_params(prep: Preprocessed):
 
     def q2(u, v):
         # u0*v0 + u1*v1 - cut*u2*v2, contracted as the JAX package's
-        inner = _fma(u[:, 0], v[:, 0], u[:, 1] * v[:, 1])
-        return _fma(-(cut * u[:, 2]), v[:, 2], inner)
+        inner = f32.fma(u[:, 0], v[:, 0], u[:, 1] * v[:, 1])
+        return f32.fma(-(cut * u[:, 2]), v[:, 2], inner)
 
     qa, qb = q2(A, A), q2(B, B)
     qc, qd, qe = 2.0 * q2(A, B), 2.0 * q2(A, C), 2.0 * q2(B, C)
     qf = q2(C, C)
-    det = _fma(4.0 * qa, qb, -(qc * qc))
+    det = f32.fma(4.0 * qa, qb, -(qc * qc))
     ok = (qa > 1e-12) & (qb > 1e-12) & (det > 1e-12)
     one = torch.ones_like(det)
     sdet = torch.where(ok, det, one)
-    xc = _fma(qc, qe, -2.0 * qb * qd) / sdet
-    yc = _fma(qc, qd, -2.0 * qa * qe) / sdet
-    R = -(qf + 0.5 * _fma(qd, xc, qe * yc))
+    xc = f32.fma(qc, qe, -2.0 * qb * qd) / sdet
+    yc = f32.fma(qc, qd, -2.0 * qa * qe) / sdet
+    R = -(qf + 0.5 * f32.fma(qd, xc, qe * yc))
     ok = ok & (R > 0) & torch.isfinite(xc) & torch.isfinite(yc)
     sqb = torch.where(ok, qb, one)
     zero = torch.zeros_like(det)
@@ -185,16 +169,16 @@ def _column_y_range(rows1: torch.Tensor, j1: torch.Tensor, tiles_y: int):
     x0 = ix.float() * TILE
     u0 = x0 - xc
     u1 = u0 + (TILE - 1)
-    umax = _sqrt(torch.clamp(ga / de, min=0.0))
+    umax = f32.sqrt(torch.clamp(ga / de, min=0.0))
     u0c = torch.maximum(u0, -umax)
     u1c = torch.minimum(u1, umax)
     ell_on = (u0c <= u1c) & (ga > 0)
     # stationary point of the upper boundary V(u) = al*u + sqrt(ga - de*u^2)
     al2 = al * al  # two uses: not fused
-    ut = torch.sign(al) * _sqrt(torch.clamp(al2 * ga / (de * (de + al2)), min=0.0))
+    ut = torch.sign(al) * f32.sqrt(torch.clamp(al2 * ga / (de * (de + al2)), min=0.0))
 
     def V(u):
-        return _fma(al, u, _sqrt(torch.clamp(_fma(-(de * u), u, ga), min=0.0)))
+        return f32.fma(al, u, f32.sqrt(torch.clamp(f32.fma(-(de * u), u, ga), min=0.0)))
 
     y_hi_e = yc + V(torch.minimum(torch.maximum(ut, u0c), u1c))
     y_lo_e = yc - V(torch.minimum(torch.maximum(ut, -u1c), -u0c))

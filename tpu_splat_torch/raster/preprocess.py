@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.core.transforms import quat_to_rotmat
 from tpu_splat_torch.core.sh import sh_to_color
 from tpu_splat_torch.raster.config import (
@@ -95,7 +96,11 @@ def compute_homography(
 def compute_aabb(hom: torch.Tensor, cutoff: float = CUTOFF, cutoff_sq=None):
     """Screen AABB center + extent of the cutoff-sigma conic from the
     homography (forward.cu:119-145). Returns (center [P,2], extent [P,2],
-    ok [P], h0 [P,2]); `cutoff_sq` [P] overrides the scalar cutoff."""
+    ok [P], h0 [P,2]); `cutoff_sq` [P] overrides the scalar cutoff.
+
+    Rounded as the JAX package's jitted code: each sum over the three
+    entries of (a*b)*c is the chain fma(a_k*b_k, c_k, acc), h0 is
+    fma(center, center, -sum), the root is correctly rounded."""
     Tu, Tv, Tw = hom[..., 0, :], hom[..., 1, :], hom[..., 2, :]
     if cutoff_sq is None:
         t = torch.tensor(
@@ -103,16 +108,14 @@ def compute_aabb(hom: torch.Tensor, cutoff: float = CUTOFF, cutoff_sq=None):
         ).expand(hom.shape[:-2] + (3,))
     else:
         t = torch.stack([cutoff_sq, cutoff_sq, -torch.ones_like(cutoff_sq)], dim=-1)
-    d = torch.sum(t * Tw * Tw, dim=-1)
+    d = f32.fma_sum(t * Tw, Tw)
     ok = d != 0.0
     f = t / torch.where(ok, d, torch.ones_like(d))[..., None]
-    center = torch.stack(
-        [torch.sum(f * Tu * Tw, dim=-1), torch.sum(f * Tv * Tw, dim=-1)], dim=-1
-    )
-    h0 = center * center - torch.stack(
-        [torch.sum(f * Tu * Tu, dim=-1), torch.sum(f * Tv * Tv, dim=-1)], dim=-1
-    )
-    extent = torch.sqrt(torch.clamp(h0, min=1e-4))
+    fu, fv = f * Tu, f * Tv
+    sums = f32.fma_sum(torch.stack([fu, fv, fu, fv], -2), torch.stack([Tw, Tw, Tu, Tv], -2))
+    center, s = sums[..., :2], sums[..., 2:]
+    h0 = f32.fma(center, center, -s)
+    extent = f32.sqrt(torch.clamp(h0, min=1e-4))
     return center, extent, ok, h0
 
 
@@ -143,16 +146,19 @@ def preprocess(
     """
     tiles_y, tiles_x = tile_grid(height, width)
 
-    p_view = means3d @ camera_world_view[:3, :3].T + camera_world_view[:3, 3]
-    in_front = p_view[..., 2] > NEAR_N  # auxiliary.h:189-214 near culling
-
+    # the view transform and the sums below as the JAX package's jitted CPU
+    # code rounds them (fma chains), with the same bits on every device
     hom, normal_world = compute_homography(
         means3d, scales, rotations, camera_full_proj, height, width, scale_modifier
     )
-    normal_view = normal_world @ camera_world_view[:3, :3].T
+    views = f32.fma_sum(torch.stack([means3d, normal_world], -2)[..., None, :],
+                        camera_world_view[:3, :3])  # [P, 2, 3]
+    p_view = views[:, 0] + camera_world_view[:3, 3]
+    normal_view = views[:, 1]
+    in_front = p_view[..., 2] > NEAR_N  # auxiliary.h:189-214 near culling
 
     # DUAL_VISIABLE: flip normal toward camera (forward.cu:211-216)
-    cosv = -torch.sum(p_view * normal_view, dim=-1)
+    cosv = -f32.fma_sum(p_view, normal_view)
     normal_view = torch.sign(cosv)[..., None] * normal_view
     front_ok = cosv != 0.0
 
@@ -178,26 +184,28 @@ def preprocess(
         # own center) union the low-pass disk, +1 px for f32 rounding at the
         # accept knife edge, capped at the 3-sigma box. Degenerate cut
         # conics keep the 3-sigma box.
-        rho_cut = torch.clamp(
-            2.0 * torch.log(torch.clamp(255.0 * opacity, min=1e-12)),
-            0.0,
-            CUTOFF * CUTOFF,
-        )
-        opa_ok = 255.0 * opacity >= 1.0
-        center_c, extent_c, _, h0_c = compute_aabb(hom, cutoff_sq=rho_cut)
-        cut_good = (
-            (torch.sum(hom[..., 2, :] ** 2 * torch.stack(
-                [rho_cut, rho_cut, -torch.ones_like(rho_cut)], dim=-1
-            ), dim=-1) < 0.0)
-            & (h0_c[..., 0] > 1e-4)
-            & (h0_c[..., 1] > 1e-4)
-        )[..., None]
-        lp = torch.sqrt(rho_cut)[..., None] * FILTER_SIZE
-        half = torch.ceil(
-            torch.maximum(torch.abs(center_c - center) + extent_c, lp) + 1.0
-        )
-        lo = torch.where(cut_good, torch.maximum(lo, center - half), lo)
-        hi = torch.where(cut_good, torch.minimum(hi, center + half), hi)
+        # (only the integer rect reads what follows: no gradient)
+        with torch.no_grad():
+            rho_cut = torch.clamp(
+                2.0 * f32.log(torch.clamp(255.0 * opacity, min=1e-12)),
+                0.0,
+                CUTOFF * CUTOFF,
+            )
+            opa_ok = 255.0 * opacity >= 1.0
+            center_c, extent_c, _, h0_c = compute_aabb(hom, cutoff_sq=rho_cut)
+            cut_good = (
+                (f32.fma_sum(hom[..., 2, :] * hom[..., 2, :], torch.stack(
+                    [rho_cut, rho_cut, -torch.ones_like(rho_cut)], dim=-1
+                )) < 0.0)
+                & (h0_c[..., 0] > 1e-4)
+                & (h0_c[..., 1] > 1e-4)
+            )[..., None]
+            lp = f32.sqrt(rho_cut)[..., None] * FILTER_SIZE
+            half = torch.ceil(
+                torch.maximum(torch.abs(center_c - center) + extent_c, lp) + 1.0
+            )
+            lo = torch.where(cut_good, torch.maximum(lo, center - half), lo)
+            hi = torch.where(cut_good, torch.minimum(hi, center + half), hi)
     else:
         opa_ok = True
     rect_min = torch.stack(

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.model import ops
 from tpu_splat_torch.model.densify import densify_and_prune
 from tpu_splat_torch.train.step import TrainState
@@ -129,12 +130,12 @@ def run_scheduled_events(
         if (iteration - 500) % opt_cfg.normal_prop_interval == 0 and in_prop_window:
             if not opacity_reset_0 and not opt_cfg.disable_normal_propagation:
                 outside = outside_scope_mask(g, opt_cfg)
-                opac_mask = torch.sigmoid(g.opacity[:, 0]) > 0.9
+                opac_mask = f32.sigmoid(g.opacity[:, 0]) > 0.9
                 if outside is not None:
                     opac_mask = opac_mask | outside
                 g, opt = ops.reset_opacity(g, opt, reset_value=0.9, exclusive_msk=opac_mask)
 
-                scale_mask = torch.sigmoid(g.refl[:, 0]) < 0.02
+                scale_mask = f32.sigmoid(g.refl[:, 0]) < 0.02
                 if outside is not None:
                     scale_mask = scale_mask | outside
                 g, opt = ops.reset_scale(g, opt, enlarge_scale=1.5, exclusive_msk=scale_mask)
@@ -150,7 +151,7 @@ def run_scheduled_events(
         and opt_cfg.init_until_iter < iteration <= sabotage_until
         and not opt_cfg.disable_color_sabotage
     ):
-        color_mask = torch.sigmoid(g.refl[:, 0]) > 0.1
+        color_mask = f32.sigmoid(g.refl[:, 0]) > 0.1
         outside = outside_scope_mask(g, opt_cfg)
         if outside is not None:
             color_mask = color_mask | outside
