@@ -11,7 +11,9 @@ Tolerances of the kernel against its plain version: colour, T, normal,
 refl, scope, M1, M2 and wmax 2e-5 abs; depth rows 2e-5 relative to the
 depth the pixel composites (the weighted mean for the depth sum), as
 tests/test_torch_kernel.py holds them; n_contrib and the median rank exact
-except at the T < 1e-4 knife edge (at most 8 per 4096 px). Both versions
+except at the T < 1e-4 knife edge (at most 8 per 4096 px); on a tile built
+to put pairs at alpha = 1/255 a wmax slot may differ once for each pixel
+whose n_contrib flipped there (PARITY.md D4). Both versions
 derive the per-instance coefficients in double and round the edge-on
 sensitive fields (p2, the depth numerator) alike (csrc/tile_blend_fwd.cu);
 elsewhere the kernel may fuse multiply-adds. tile_blend_backward: each
@@ -27,6 +29,7 @@ The training step on the card against the CPU run: losses 1e-5 relative, every g
 the card against the CPU: what binning reads, bit for bit.
 """
 import itertools
+import math
 import os
 import subprocess
 import sys
@@ -118,10 +121,10 @@ def test_tile_blend_forward_checks_its_inputs():
     assert float(out[:, tb.O_T].min()) == 1.0  # empty tiles stay transparent
 
 
-def _kernel_inputs(d, device):
+def _kernel_inputs(d, device, **over):
     st = state_from_numpy(d, device=device)
     cam = orbit_camera(H, W, radius=4.0, azimuth=0.3, elevation=0.2, device=device)
-    cfg = RasterConfig(**KW)
+    cfg = RasterConfig(**dict(KW, **over))
     p = preprocess(st.xyz, st.get_scaling(), st.rotation, cam.world_view, cam.full_proj,
                    cam.camera_center, H, W, sh=st.get_features(), sh_degree=1)
     b = bin_gaussians(p, H, W, cfg)
@@ -135,13 +138,16 @@ def _kernel_inputs(d, device):
                    org[:, 1].contiguous())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("opacity", [None, 4.6], ids=["random", "opaque"])
-def test_tile_blend_kernel_matches_plain_on_card(opacity):
-    _need_card()
-    feats, index = _kernel_inputs(_scene(300, 5, opacity), "cuda")
+def _assert_forward_matches_plain(feats, index, knife_edge=False):
+    """Every static variant of the forward kernel against the plain version
+    on the same inputs (feats maps packed_feats to its slab); returns the
+    kernel's outputs by variant. knife_edge: inputs built to put pairs at
+    alpha = 1/255, where the two versions' roundings may flip an accept
+    (PARITY.md D4); a wmax slot may then differ once for each pixel whose
+    n_contrib flipped."""
     abs_rows = [0, 1, 2, tb.O_T, tb.O_REFL, tb.O_NRM, tb.O_NRM + 1, tb.O_NRM + 2,
                 tb.O_SCOPE, tb.O_M1, tb.O_M2]
+    outs = {}
     for train, packed, wm in itertools.product((False, True), repeat=3):
         kw = dict(train_shape=train, packed_feats=packed, collect_wmax=wm)
         before = LAUNCHES["tile_blend_forward"]
@@ -160,7 +166,152 @@ def test_tile_blend_kernel_matches_plain_on_card(opacity):
                          (tb.O_DIST, np.abs(o_p[:, tb.O_DIST]))):
             d = np.abs(o_k[:, r] - o_p[:, r])[keep]
             assert (d <= TOL * np.maximum(1.0, scale[keep])).all(), (kw, r)
-        np.testing.assert_allclose(w_k.cpu().numpy(), w_p.cpu().numpy(), rtol=0, atol=TOL)
+        if knife_edge:
+            n_off = int(((w_k - w_p).abs() > TOL).sum())
+            assert n_off <= int(flip.sum()), (kw, n_off, int(flip.sum()))
+        else:
+            np.testing.assert_allclose(w_k.cpu().numpy(), w_p.cpu().numpy(), rtol=0, atol=TOL)
+        outs[(train, packed, wm)] = o_k
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opacity", [None, 4.6], ids=["random", "opaque"])
+def test_tile_blend_kernel_matches_plain_on_card(opacity):
+    _need_card()
+    feats, index = _kernel_inputs(_scene(300, 5, opacity), "cuda")
+    _assert_forward_matches_plain(feats, index)
+
+
+def _retile(feats, tiles):
+    """A slab and index of synthetic tiles: tiles is a list of (slab
+    columns, org_x, org_y); each tile's columns go to a 128-aligned range of
+    a new slab (of both layouts in feats), in the given order."""
+    starts, cols, at = [], [], 0
+    for c, _, _ in tiles:
+        starts.append(at)
+        cols.append(c)
+        pad = -c.numel() % tb.CI
+        cols.append(torch.full((pad,), -1, dtype=torch.long, device=c.device))
+        at += c.numel() + pad
+    cols = torch.cat(cols)
+    out = {pk: torch.where(cols >= 0, f[:, cols.clamp(min=0)], 0.0) for pk, f in feats.items()}
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=cols.device)
+    return out, (i32(starts), i32([c.numel() for c, _, _ in tiles]),
+                 i32([x for _, x, _ in tiles]), i32([y for _, _, y in tiles]))
+
+
+def _exponents(fb, ox, oy):
+    """(s3, s2) of a tile's instances at its 256 pixels in float64, each
+    [count, 256]: the kernel's alpha is exp(min(log 0.99, max(s3, s2)))."""
+    g = fb.double()
+    c = lambda v: torch.tensor([[v + 7.0]], dtype=torch.float64, device=g.device)
+    A, B, cp, _, _, _, sx, sy, s0, lo = tb._instance_coeffs(g, c(ox), c(oy))
+    px, py, r2 = tb._pixel_basis(g.device, torch.float64)
+    field = lambda a, b, c: a[..., None] * px + b[..., None] * py + c[..., None]
+    p0, p1, p2 = (field(A[k], B[k], cp[k]) for k in range(3))
+    s2 = field(sx, sy, s0) - 0.5 * tb.FILTER_INV_SQUARE * r2
+    s3 = torch.where(p2.abs() < 1e-4, -1e8, lo[..., None] - 0.5 * (p0 ** 2 + p1 ** 2) / p2 ** 2)
+    return s3[0], s2[0]
+
+
+@pytest.mark.gpu
+def test_tile_blend_forward_edge_tiles_on_card():
+    """Synthetic tiles built from a semi-transparent scene's heaviest tile:
+    no instances; its own ragged count; repeated out to the production
+    tile_depth (16 chunks); moved far from its instances (no pair passes the
+    alpha test); and with each log-opacity set so that the instance's
+    strongest pixel sits within 2e-3 of log(1/255), across the kernel's
+    reject margin. All eight variants against the plain version."""
+    _need_card()
+    feats, index = _kernel_inputs(_scene(900, 11, opacity=-1.5), "cuda")
+    starts, counts, ox, oy = (x.cpu() for x in index)
+    h = int(torch.argmax(counts))
+    n = int(counts[h])
+    assert n > tb.CI and n % tb.CI != 0
+    own = torch.arange(int(starts[h]), int(starts[h]) + n, device="cuda")
+    depth = own[torch.arange(2048) % n]
+    org = (int(ox[h]), int(oy[h]))
+    # the margin tile reads its own copy of the columns, each log-opacity
+    # set so that the exponent at the instance's strongest pixel lands
+    # within [-2e-3, 1e-3] of log(1/255)
+    rng = np.random.default_rng(4)
+    at = feats[False].shape[1]
+    s3, _ = _exponents(feats[False][:, own], *org)
+    r3h_min = (feats[False][tb.F_LO, own].double()[:, None] - s3).amin(1)
+    target = torch.tensor(math.log(1 / 255) + rng.uniform(-2e-3, 1e-3, n), device="cuda")
+    lo = (target + torch.where(r3h_min < 3.0, r3h_min, 0.0)).float()
+    marg = {}
+    for pk, f in feats.items():
+        m = f[:, own].clone()
+        m[tb.F_LO] = lo
+        marg[pk] = torch.cat([f, m], dim=1)
+    margin_cols = torch.arange(at, at + n, device="cuda")
+    e = torch.maximum(*_exponents(marg[False][:, margin_cols], *org))
+    band = ((e >= math.log(1 / 255) - 2.0 ** -10) & (e < math.log(1 / 255) + 1e-3)).sum()
+    assert int(band) >= 100, int(band)
+    slab, idx = _retile(marg, [(own[:0], *org), (own, *org), (depth, *org),
+                               (own, org[0] + 4096, org[1] + 4096), (margin_cols, *org)])
+    assert idx[1].tolist() == [0, n, 2048, n, n]
+    outs = _assert_forward_matches_plain(slab, idx, knife_edge=True)
+    for o in outs.values():
+        assert (o[0, tb.O_T] == 1.0).all() and (o[0, tb.O_NCON] == 0).all()  # empty
+        assert (o[3, tb.O_T] == 1.0).all() and (o[3, tb.O_NCON] == 0).all()  # none pass
+        assert (o[4, tb.O_NCON] > 0).any()  # pairs at the margin contribute
+
+
+@pytest.mark.gpu
+def test_tile_blend_forward_opaque_front_on_card():
+    """Three large opaque surfels facing the camera in front of the scene:
+    every pixel is done after its tile's first chunk, and the kernel skips
+    the later chunks (all eight variants against the plain version)."""
+    _need_card()
+    d = _scene(900, 11, opacity=-1.5)
+    cam = orbit_camera(H, W, radius=4.0, azimuth=0.3, elevation=0.2, device="cpu")
+    c = cam.camera_center.numpy().astype(np.float64)
+    v = c / np.linalg.norm(c)
+    q = np.array([1.0 + v[2], -v[1], v[0], 0.0])  # turns the surfel normal (z) onto v
+    front = dict(xyz=np.stack([c * f for f in (0.55, 0.5, 0.45)]).astype(np.float32),
+                 scaling=np.full((3, 2), 1.5, np.float32),
+                 rotation=np.tile(q / np.linalg.norm(q), (3, 1)).astype(np.float32),
+                 opacity=np.full((3, 1), 8.0, np.float32))
+    for k in ("features_dc", "features_rest", "refl"):
+        front[k] = d[k][:3]
+    for k, x in front.items():
+        d[k] = np.concatenate([x, d[k]])
+    d["alive"] = np.ones(d["xyz"].shape[0], bool)
+    feats, index = _kernel_inputs(d, "cuda", max_tiles_per_gaussian=64)
+    assert int(index[1].max()) > tb.CI
+    outs = _assert_forward_matches_plain(feats, index)
+    for o in outs.values():
+        # the front layers cover every pixel (alpha 0.99 each), and nothing
+        # behind them counts
+        assert (o[:, tb.O_T] <= 0.0101).all() and (o[:, tb.O_NCON] <= 3).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 19, 32])
+def test_segment_sum_rows_edge_runs_on_card(F):
+    """Empty runs, gaps between runs, a run longer than the kernel's row
+    buffer (8192 floats) and rows whose base is not 16-byte aligned."""
+    _need_card()
+    rng = np.random.default_rng(F)
+    P_ = 3000
+    lens = rng.integers(0, 9, P_)
+    lens[rng.uniform(size=P_) < 0.25] = 0
+    lens[1234] = 20_000
+    gaps = rng.integers(0, 3, P_) * (rng.uniform(size=P_) < 0.3)
+    starts = np.cumsum(gaps + np.concatenate([[0], lens[:-1]]))
+    ends = starts + lens
+    N = int(ends[-1]) + 7
+    s, e = (torch.tensor(x.astype(np.int32), device="cuda") for x in (starts, ends))
+    big = torch.tensor(rng.normal(size=(N + 1, F)).astype(np.float32), device="cuda")
+    for rows in (big[:N], big[1:]):
+        got = sr.segment_sum_rows(rows, s, e)
+        want = sr.segment_sum_rows_plain(rows.cpu(), s.cpu(), e.cpu())
+        scale = want.abs().amax(0)
+        assert bool(((got.cpu() - want).abs() <= 1e-6 * scale).all()), F
+        assert bool((got.cpu()[torch.from_numpy(lens == 0)] == 0).all())
 
 
 @pytest.mark.gpu
