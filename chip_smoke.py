@@ -21,7 +21,16 @@ binning of a 100k subset on the card against the CPU (bit for bit), a
 small loop on the card against the CPU event by event, 1 + 4 tight steps at 1088x1920 on 1M Gaussians (each
 must launch `run_expand` twice and the other four kernels once), the loop
 body at iterations where every scheduled event fires, `segment_sum_rows`
-on the step's regroup rows, and a served tight frame. Each phase prints one
+on the step's regroup rows, and a served tight frame. Phase 8 trains from a
+dataset on disk: it writes a COLMAP scene of eight 1088x1920 views rendered
+from the bench cloud (PNGs, a binary sparse model, 262,144 points), loads
+it through `Scene`, runs the training CLI (`scripts/train.py:main`, tight
+culling) in this process for 300 iterations with a densify event, growth
+checks, test renders, a PLY snapshot and a checkpoint, and holds that the
+run fits its views (the train-set PSNR rises, the loss falls; the held-out
+view's PSNR is recorded) and that densify changed the cloud; then it checks
+the files: the reloaded PLY renders bit equal, the checkpoint round-trips
+bit equal, and a second run resumes from it. Each phase prints one
 line; every failed check raises, so the exit code is not 0. Details go to
 chiprun_out/chip_smoke.json. The last three lines are the kernels' JSON
 record (launches over the 4 timed tight training steps), the card's name
@@ -119,6 +128,34 @@ SMALL_LOOP_OPT = dict(init_until_iter=2, densify_from_iter=2, densification_inte
                       color_sabotage_until_iter=20, densify_grad_threshold=2e-5)
 SMALL_LOOP_ITERS = 7
 EVENT_TOL = 1e-6  # event outputs card vs CPU on one input, of each leaf's max
+
+# training from a dataset on disk (slice 6): a COLMAP scene of the bench
+# cloud's views, through the train CLI with tight culling. The ISP's scene
+# freeze covers a schedule's last 5000 iterations (is_scene_frozen), so the
+# run takes a 5400-iteration schedule (frozen from 400) and stops after
+# iteration 300. Its events: the opacity-LR pulse at 100, densify at 200
+# (it prunes ~88% of this volumetric cloud), the env-map doubling at 250
+# (densify_until_iter); growth of max_instances at 100.
+P8_DIR = os.path.join(OUT_DIR, "phase8")
+P8_VIEWS = 8
+# azimuth offsets from the bench's view 0 (0.4 rad), in steps of pi/16: the
+# held-out view (view_00, the first of every 8 by name) sits among the
+# seven training views
+P8_AZIMUTHS = tuple(0.4 + k * math.pi / 16 for k in (0, -1, 1, -2, 2, -3, 3, 4))
+P8_POINTS = 262_144  # x 4 = capacity 1 << 20, the bench capacity (scripts/train.py:63)
+P8_STOP, P8_RESUME_FROM, P8_RESUME_TO = 300, 150, 200
+P8_WV_TOL = 1e-5  # each loaded camera's world_view against the one that rendered it
+P8_ARGS = ["-r", "1", "--eval", "--tight_culling", "--disable_viewer", "-q",
+           "--max_tiles_per_gaussian", "32", "--max_instances", "3981312",
+           "--tile_depth", "2048", "--iterations", "5400", "--freeze_xyz_last_iters", "1000",
+           "--init_until_iter", "50", "--densify_from_iter", "100",
+           "--densification_interval", "100", "--densification_interval_when_prop", "100",
+           "--densify_until_iter", "250",
+           "--test_iterations", "1", "300", "--save_iterations", "150", "300",
+           "--checkpoint_iterations", "150"]
+P8_DENSIFY = 200  # the densify event of that schedule (train/loop.py)
+P8_LOSS_WINDOW = 50  # steps averaged at each end of the run for the loss check
+P8_WARMUP = 5  # first steps left out of the step-time spread
 
 
 def log(phase: str, **kv) -> None:
@@ -707,6 +744,342 @@ def compare_train_states(a, b, label, tol=EVENT_TOL):
     return worst
 
 
+def pack_features_card_vs_cpu(state, cam, cfg, bg):
+    """Serve one frame keeping `pack_features`' arguments and result, run it
+    again on the CPU on the same inputs: -> (differing words, words). Both
+    devices run the same float32 helpers (core/f32.py), so they agree bit
+    for bit."""
+    import torch
+
+    from tpu_splat_torch.kernels import tile_blend as tb
+    from tpu_splat_torch.renderer import render_fast
+
+    seen = []
+    pack = tb.pack_features
+
+    def keep(*args, **kw):
+        out = pack(*args, **kw)
+        seen.append((args, kw, out))
+        return out
+
+    tb.pack_features = keep
+    try:
+        render_fast(state, cam, cfg, bg, collect_weights=False)
+    finally:
+        tb.pack_features = pack
+    ((args, kw, out),) = seen
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    want = pack(*(cpu(a) for a in args), **{k: cpu(v) for k, v in kw.items()})
+    got = out.cpu()
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum()), got.numel()
+
+
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """COLMAP's rotmat2qvec: (w, x, y, z) of a rotation matrix, w >= 0."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = np.asarray(R, np.float64).flat
+    K = np.array([
+        [Rxx - Ryy - Rzz, 0, 0, 0],
+        [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+        [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+        [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_scene(root, state, cams, cfg, bg, seed=8, points=P8_POINTS):
+    """A COLMAP scene of `cams` rendered from `state`: uint8 PNGs under
+    images/, one PINHOLE camera, the views' poses, and `points` points
+    sampled from the live rows with their DC colours, in a binary sparse
+    model. -> {image name: camera}."""
+    import torch
+
+    from tpu_splat_torch.core.sh import SH_C0
+    from tpu_splat_torch.data.colmap import ColmapCamera, ColmapImage, write_model
+    from tpu_splat_torch.data.native_loader import write_png
+    from tpu_splat_torch.renderer import render_fast
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    K = cams[0].K.cpu().double().numpy()
+    colmap_cams = {1: ColmapCamera(1, "PINHOLE", cams[0].width, cams[0].height,
+                                   np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
+    imgs, by_name = {}, {}
+    for k, cam in enumerate(cams):
+        out = render_fast(state, cam, cfg, bg, collect_weights=False)
+        img = (torch.clamp(out.render, 0.0, 1.0) * 255.0).round().to(torch.uint8).cpu().numpy()
+        name = f"view_{k:02d}"
+        write_png(os.path.join(root, "images", name + ".png"), img)
+        wv = cam.world_view.cpu().double().numpy()
+        imgs[k + 1] = ColmapImage(k + 1, rotmat_to_qvec(wv[:3, :3]), wv[:3, 3], 1,
+                                  name + ".png")
+        by_name[name] = cam
+    live = torch.nonzero(state.alive).squeeze(1).cpu().numpy()
+    idx = np.sort(np.random.default_rng(seed).choice(live, points, replace=False))
+    xyz = state.xyz.cpu().numpy()[idx].astype(np.float64)
+    dc = state.features_dc[:, 0].cpu().numpy()[idx]
+    rgb = np.clip((dc * SH_C0 + 0.5) * 255.0, 0, 255).round().astype(np.uint8)
+    write_model(colmap_cams, imgs, (xyz, rgb, np.zeros(points)),
+                os.path.join(root, "sparse", "0"), ext=".bin")
+    return by_name
+
+
+class _StopRun(Exception):
+    """Raised by the wrapped step once the run has done its steps."""
+
+    def __init__(self, ts):
+        super().__init__(f"stopped after step {ts.step}")
+        self.ts = ts
+
+
+def run_train_cli(argv, stop_at, device):
+    """`scripts.train.main(argv)` in this process, with its step, scheduled
+    events, growth check and savers wrapped: each call is synchronised and
+    timed on the host clock, each step's kernel launches are counted and its
+    loss kept, and the run stops once `stop_at` steps are done (the state
+    then is the CLI's after that iteration's events, renders and saves).
+    -> (TrainState, record)."""
+    import torch
+
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.model import io as mio
+    from tpu_splat_torch.scripts import train as cli
+    from tpu_splat_torch.train import grow as grow_mod
+    from tpu_splat_torch.train import loop as loop_mod
+    from tpu_splat_torch.train import step as step_mod
+
+    sync = torch.cuda.synchronize
+    rec = dict(steps=[], events=[], growth=[], saves=[])
+    originals = dict(make=step_mod.make_train_step, events=loop_mod.run_scheduled_events,
+                     growth=grow_mod.check_growth, ply=mio.save_ply, ckpt=mio.save_checkpoint)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def make_timed(*a, **k):
+        step = originals["make"](*a, **k)
+
+        def timed_step(ts, *sa, **sk):
+            if ts.step >= stop_at:
+                raise _StopRun(ts)
+            before = dict(LAUNCHES)
+            ms, out = timed(lambda: step(ts, *sa, **sk))
+            rec["steps"].append(dict(
+                iteration=ts.step + 1, ms=ms, loss=out[1].loss,
+                launches={n: LAUNCHES[n] - before.get(n, 0) for n in LAUNCHES}))
+            return out
+
+        return timed_step
+
+    def events_timed(ts, iteration, *a, **k):
+        lg = k["log"]
+        n0, d0 = len(lg.events), (lg.densified, lg.pruned, lg.overflowed)
+        alive0 = int(ts.gaussians.alive.sum())
+        ms, out = timed(lambda: originals["events"](ts, iteration, *a, **k))
+        d = (lg.densified - d0[0], lg.pruned - d0[1], lg.overflowed - d0[2])
+        # densify leaves no entry in the log: what it did shows in the counts
+        fired = [e for _, e in lg.events[n0:]] + (["densify"] if any(d) else [])
+        if fired:
+            rec["events"].append(dict(
+                iteration=iteration, ms=ms, events=fired, densified=d[0], pruned=d[1],
+                overflow=d[2], alive_before=alive0, alive_after=int(out.gaussians.alive.sum())))
+        return out
+
+    def growth_timed(ts, cfg, **k):
+        ms, dec = timed(lambda: originals["growth"](ts, cfg, **k))
+        rec["growth"].append(dict(ms=ms, grew=dec.grew, reasons=list(dec.reasons),
+                                  capacity=dec.ts.gaussians.capacity,
+                                  max_instances=dec.cfg.max_instances, **k))
+        return dec
+
+    def saver(kind, fn):
+        def save(*a, **k):
+            ms, out = timed(lambda: fn(*a, **k))
+            rec["saves"].append(dict(kind=kind, ms=ms))
+            return out
+        return save
+
+    step_mod.make_train_step = make_timed
+    loop_mod.run_scheduled_events = events_timed
+    grow_mod.check_growth = growth_timed
+    mio.save_ply = saver("ply", originals["ply"])
+    mio.save_checkpoint = saver("checkpoint", originals["ckpt"])
+    try:
+        cli.main(argv, device=device)
+        raise AssertionError(f"the CLI ended before step {stop_at}")
+    except _StopRun as stop:
+        ts = stop.ts
+    finally:
+        step_mod.make_train_step = originals["make"]
+        loop_mod.run_scheduled_events = originals["events"]
+        grow_mod.check_growth = originals["growth"]
+        mio.save_ply, mio.save_checkpoint = originals["ply"], originals["ckpt"]
+    return ts, rec
+
+
+def phase8_train_from_disk(state, dev, detail):
+    """Slice 6: train from a COLMAP scene on disk through the train CLI. Its
+    files (~2 GB of images, snapshots and checkpoints) are removed after."""
+    import shutil
+
+    try:
+        return _phase8(state, dev, detail)
+    finally:
+        shutil.rmtree(P8_DIR, ignore_errors=True)
+
+
+def _phase8(state, dev, detail):
+    import shutil
+
+    import torch
+
+    from tpu_splat_torch.data.scene import Scene
+    from tpu_splat_torch.data.synthetic import orbit_camera
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.model import convert
+    from tpu_splat_torch.model.io import load_checkpoint, load_ply, save_checkpoint
+    from tpu_splat_torch.raster.config import RasterConfig, production_config
+    from tpu_splat_torch.renderer import render_fast
+
+    shutil.rmtree(P8_DIR, ignore_errors=True)
+    scene_dir, model_dir = os.path.join(P8_DIR, "scene"), os.path.join(P8_DIR, "model")
+    bg = torch.zeros(3, device=dev)
+
+    # 8a. the scene: eight views on the bench orbit rendered from the bench cloud
+    cams = [orbit_camera(H, W, radius=6.0, azimuth=a, elevation=0.3, device=dev)
+            for a in P8_AZIMUTHS]
+    t0 = time.perf_counter()
+    by_name = write_colmap_scene(scene_dir, state, cams, production_config(**PROD), bg)
+    write_s = time.perf_counter() - t0
+
+    # 8b. load it through Scene: the loaded poses are the rendering ones
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = Scene(scene_dir, resolution=1, eval_split=True, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    wv_err = fp_err = 0.0
+    for lc in scene.train_cameras + scene.test_cameras:
+        want = by_name[lc.image_name]
+        wv_err = max(wv_err, float((lc.camera.world_view - want.world_view).abs().max()))
+        fp_err = max(fp_err, float((lc.camera.full_proj - want.full_proj).abs().max()))
+        if (lc.camera.height, lc.camera.width) != (H, W) or lc.image.device != want.world_view.device:
+            raise AssertionError(f"{lc.image_name}: loaded at the wrong size or device")
+    n_train, n_test, decoder = len(scene.train_cameras), len(scene.test_cameras), scene.decoder
+    del scene
+    if wv_err > P8_WV_TOL or n_train + n_test != P8_VIEWS or n_test < 1:
+        raise AssertionError(f"COLMAP poses: world_view off by {wv_err} ({n_train}+{n_test} views)")
+    log("8 scene", views=P8_VIEWS, train=n_train, test=n_test, points=P8_POINTS,
+        write_s=f"{write_s:.2f}", load_s=f"{load_s:.2f}", world_view_err=f"{wv_err:.3g}",
+        full_proj_err=f"{fp_err:.3g}", decoder=repr(decoder))
+
+    # 8c. the CLI, in this process; the launch counts read over the run
+    argv = ["-s", scene_dir, "-m", model_dir, *P8_ARGS]
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ts, rec = run_train_cli(argv, P8_STOP, str(dev))
+    cli_s = time.perf_counter() - t0
+    run_launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # 8d. hold what came out
+    losses = torch.stack([r["loss"] for r in rec["steps"]]).float().cpu()
+    if len(rec["steps"]) != P8_STOP or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{len(rec['steps'])} steps, finite: {torch.isfinite(losses).all()}")
+    # each step as a tight step launches: run_expand twice, the other
+    # kernels once, but the cubemap's before init_until_iter (no reflection)
+    init_until = int(P8_ARGS[P8_ARGS.index("--init_until_iter") + 1])
+    want_launch = lambda it: (dict.fromkeys(TRAIN_KERNELS, 1) | {"run_expand": 2}
+                              | ({"cubemap_tap_accumulate": 0} if it < init_until else {}))
+    bad = [(r["iteration"], r["launches"]) for r in rec["steps"]
+           if any(r["launches"].get(n, 0) != c for n, c in want_launch(r["iteration"]).items())]
+    if bad:
+        raise AssertionError(f"steps {bad[:5]} did not launch each kernel as a tight step does")
+    with open(os.path.join(model_dir, "training_report.jsonl")) as f:
+        report = [json.loads(line) for line in f]
+    # the run fits its views: the train-set PSNR rises and the loss falls;
+    # the held-out view's PSNR is recorded, not held
+    psnr = {r["iteration"]: r["test"]["psnr"] for r in report}
+    train_psnr = {r["iteration"]: r["train"]["psnr"] for r in report}
+    loss_ends = [float(losses[:P8_LOSS_WINDOW].mean()), float(losses[-P8_LOSS_WINDOW:].mean())]
+    if not train_psnr.get(P8_STOP, -math.inf) > train_psnr.get(1, math.inf):
+        raise AssertionError(f"train-set PSNR did not rise: {train_psnr}")
+    if not loss_ends[1] < loss_ends[0]:
+        raise AssertionError(f"the loss did not fall: first and last {P8_LOSS_WINDOW} steps "
+                             f"{loss_ends}")
+    dens = [e for e in rec["events"] if e["iteration"] == P8_DENSIFY]
+    if not dens or dens[0]["densified"] + dens[0]["pruned"] == 0 or \
+            dens[0]["alive_after"] == dens[0]["alive_before"]:
+        raise AssertionError(f"densify at {P8_DENSIFY} changed nothing: {dens}")
+    if not rec["growth"]:
+        raise AssertionError("no growth check ran")
+    ply = os.path.join(model_dir, "point_cloud", f"iteration_{P8_STOP}", "point_cloud.ply")
+    loaded = load_ply(ply, capacity=ts.gaussians.capacity, device=dev)
+    eval_cfg = RasterConfig(max_tiles_per_gaussian=32, max_instances=3_981_312, tile_depth=2048)
+    a = render_fast(ts.gaussians, cams[0], eval_cfg, bg)
+    b = render_fast(loaded, cams[0], eval_cfg, bg)
+    ply_diff = sum(int((getattr(a, f).view(torch.int32) != getattr(b, f).view(torch.int32)).sum())
+                   for f in ("render", "base_color", "alpha", "normal", "refl_strength"))
+    if ply_diff or not os.path.exists(ply.replace(".ply", ".map.npz")):
+        raise AssertionError(f"the reloaded PLY renders {ply_diff} words apart")
+    ck = os.path.join(P8_DIR, "round_trip.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(ck, ts, P8_STOP)
+    ck_save_s = time.perf_counter() - t0
+    back, it = load_checkpoint(ck, ts)
+    la, lb = convert.train_state_to_leaves(ts), convert.train_state_to_leaves(back)
+    ck_bad = [k for k in la if la[k].dtype != lb[k].dtype or not np.array_equal(
+        la[k].reshape(-1).view(np.uint8), lb[k].reshape(-1).view(np.uint8))]
+    if ck_bad or it != P8_STOP or back.gaussians.device != ts.gaussians.device or not torch.equal(
+            back.generator.get_state(), ts.generator.get_state()):
+        raise AssertionError(f"checkpoint round trip: leaves {ck_bad} differ")
+    del back, a, b, loaded
+    resume_argv = ["-s", scene_dir, "-m", os.path.join(P8_DIR, "resume"), *P8_ARGS,
+                   "--start_checkpoint", os.path.join(model_dir, f"chkpnt{P8_RESUME_FROM}.npz")]
+    ts_r, rec_r = run_train_cli(resume_argv, P8_RESUME_TO, str(dev))
+    if ts_r.step != P8_RESUME_TO or len(rec_r["steps"]) != P8_RESUME_TO - P8_RESUME_FROM:
+        raise AssertionError(f"the resumed run stopped at {ts_r.step}")
+
+    # figures: step wall ms at iterations with no event, growth, render or
+    # save at or just before them (and past the first steps)
+    busy = ({e["iteration"] for e in rec["events"]} | set(range(100, P8_STOP + 1, 100))
+            | {1, 150, P8_STOP})
+    quiet = [r["ms"] for r in rec["steps"] if r["iteration"] > P8_WARMUP
+             and r["iteration"] not in busy and r["iteration"] - 1 not in busy]
+    q = np.percentile(quiet, [0, 10, 50, 90, 100])
+    saves = {k: [r["ms"] / 1e3 for r in rec["saves"] if r["kind"] == k]
+             for k in ("ply", "checkpoint")}
+    out = dict(
+        write_scene_s=write_s, load_scene_s=load_s, decoder=decoder, world_view_err=wv_err,
+        full_proj_err=fp_err, cli_s=cli_s, steps=len(rec["steps"]),
+        step_ms=dict(n=len(quiet), **{k: float(v) for k, v in zip(
+            ("min", "p10", "median", "p90", "max"), q)}),
+        events=rec["events"], growth=rec["growth"], ply_save_s=saves["ply"],
+        checkpoint_save_s=saves["checkpoint"], round_trip_save_s=ck_save_s,
+        peak_mem_gib=peak, launches=run_launches, test_psnr=psnr, train_psnr=train_psnr,
+        report=report, loss_first_last_means=loss_ends,
+        alive=int(ts.gaussians.alive.sum()), capacity=ts.gaussians.capacity,
+        resume=dict(steps=len(rec_r["steps"]), step=ts_r.step),
+        step_ms_all=[r["ms"] for r in rec["steps"]])
+    detail["train_from_disk"] = out
+    log("8 train from disk", load_s=f"{load_s:.2f}",
+        step_ms_median=f"{q[2]:.2f}", step_ms_p10_p90=f"{q[1]:.2f}-{q[3]:.2f}",
+        step_ms_min_max=f"{q[0]:.2f}-{q[4]:.2f}",
+        event_ms=",".join(f"{e['iteration']}:{e['ms']:.1f}" for e in rec["events"]),
+        ply_save_s=",".join(f"{v:.2f}" for v in saves["ply"]),
+        checkpoint_save_s=",".join(f"{v:.2f}" for v in saves["checkpoint"]),
+        peak_mem_gib=f"{peak:.2f}", decoder=repr(decoder),
+        train_psnr=f"{train_psnr[1]:.2f}->{train_psnr[P8_STOP]:.2f}",
+        loss=f"{loss_ends[0]:.4f}->{loss_ends[1]:.4f}",
+        test_psnr=f"{psnr[1]:.2f}->{psnr[P8_STOP]:.2f}", alive=out["alive"],
+        capacity=out["capacity"], resumed_to=ts_r.step)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -800,6 +1173,16 @@ def main() -> int:
     res, worst = check_variants(inputs, tiles, "full width, sampled tiles")
     detail["full_width_sampled"] = res
     errs.append(worst)
+    # pack_features on the card against the CPU on the same inputs
+    pack_bits = {}
+    for name, c in (("production", cfg), ("full", full_cfg)):
+        n_diff, n_words = pack_features_card_vs_cpu(state, views[0], c, bgd)
+        pack_bits[name] = dict(differing_words=n_diff, words=n_words)
+        if n_diff:
+            raise AssertionError(f"pack_features card vs CPU: {pack_bits}")
+    log("3 pack_features card vs cpu", **{k: f"{v['differing_words']}/{v['words']}"
+                                           for k, v in pack_bits.items()})
+    detail["pack_features_card_vs_cpu"] = pack_bits
 
     # kernel time at the main path's shapes (train-shaped, packed, no wmax)
     main_kw = dict(train_shape=True, packed_feats=True, collect_wmax=False)
@@ -1439,7 +1822,11 @@ def main() -> int:
     log("7 serve tight", **{k: (f"{v:.2f}" if isinstance(v, float) else v)
                             for k, v in served_tight.items()})
     detail["serve_tight"] = served_tight
-    del state, out_t
+    del out_t
+
+    # 8. train from a COLMAP scene on disk through the train CLI
+    phase8_train_from_disk(state, dev, detail)
+    del state
 
     # the kernels' record: launches over the 4 timed steps of the newest
     # main path (the tight-culling step; segment_sum_rows is on no path)

@@ -699,3 +699,59 @@ def test_run_decode_binning_on_card_matches_cpu(mode):
            for dev in ("cpu", "cuda")}
     for f in out["cpu"]._fields:
         assert torch.equal(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f)), f
+
+
+@pytest.mark.gpu
+def test_native_loader_decodes_a_full_frame_png_on_card(tmp_path):
+    """The native PNG decoder, built on the card's machine, reads a
+    1088x1920 RGB frame written by the numpy PNG writer (all five row
+    filters) back to the array written."""
+    _need_card()
+    from tpu_splat_torch.data import native_loader as nl
+
+    assert nl.decoder().startswith("native"), nl.decoder()
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (1088, 1920, 3), dtype=np.uint8)
+    img[:, :960] //= 8  # smooth half: the predictors matter
+    p = str(tmp_path / "frame.png")
+    nl.write_png(p, img, filters=(0, 1, 2, 3, 4))
+    np.testing.assert_array_equal(nl.decode_png(p), img)
+    (idx, got), = list(nl.PrefetchingImageLoader([p]))
+    assert idx == 0
+    np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_of_a_1m_row_state_on_card(tmp_path):
+    """save_checkpoint then load_checkpoint of a TrainState with 1<<20 rows
+    and the ISP on, on the card: every leaf bit equal, the generator
+    state kept."""
+    _need_card()
+    from tpu_splat_torch.model import convert
+    from tpu_splat_torch.model.io import load_checkpoint, save_checkpoint
+
+    cap = 1 << 20
+    rng = np.random.default_rng(12)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    d = dict(xyz=f(cap, 3), features_dc=f(cap, 1, 3), features_rest=f(cap, 15, 3),
+             scaling=f(cap, 2), rotation=f(cap, 4), opacity=f(cap, 1), refl=f(cap, 1),
+             texture=f(6, 3, 128, 128), fail_value=f(3), alive=rng.random(cap) < 0.7,
+             active_sh_degree=2, max_sh_degree=3)
+    ts = TrainState.create(state_from_numpy(d, device="cuda"), OptimizationParams(),
+                           num_frames=8)
+    opt = ts.opt._replace(
+        mu={k: torch.randn_like(v) for k, v in ts.opt.mu.items()},
+        nu={k: torch.rand_like(v) for k, v in ts.opt.nu.items()}, count=311)
+    ts = type(ts)(**{**ts.__dict__, "opt": opt, "step": 311, "opacity_lr": 0.0125,
+                     "stats": type(ts.stats)(*(torch.rand_like(v) for v in ts.stats))})
+    torch.randn(5, generator=ts.generator)
+    path = str(tmp_path / "chk.npz")
+    save_checkpoint(path, ts, 311)
+    back, it = load_checkpoint(path, ts)
+    assert it == 311 and back.gaussians.device.type == "cuda"
+    want, got = (convert.train_state_to_leaves(x) for x in (ts, back))
+    assert list(want) == list(got)
+    for k in want:
+        assert want[k].dtype == got[k].dtype and np.array_equal(
+            want[k].reshape(-1).view(np.uint8), got[k].reshape(-1).view(np.uint8)), k
+    assert torch.equal(back.generator.get_state(), ts.generator.get_state())

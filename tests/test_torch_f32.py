@@ -90,3 +90,41 @@ def test_fma_gradients_are_the_float32_product_rule():
     want = torch.autograd.grad((((a * m) * b).sum(-1) * g).sum() + (a * b + c).sum(), (a, b, c))
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+
+
+def test_log_and_its_gradient_bit_equal_jax():
+    """f32.log forward and backward against jnp.log and jax.grad(jnp.log)
+    (and jax.vjp with seeded cotangents) under jax.jit, on 1e5 seeded
+    inputs across the float32 range: subnormals, 1e-12, 1, large values.
+    Every result bit equal."""
+    rng = np.random.default_rng(5)
+    n = 100_000
+    x = np.concatenate([
+        rng.uniform(1e-45, 2.0**-126, 2_000),  # subnormal
+        10.0 ** rng.uniform(-38, 38.5, n - 2_010),
+        [1e-12, 1.0, 2.0**-126, 3.4e38, 1e-45, 0.5, 2.0, 1e-3, 255.0, 1e-38],
+    ]).astype(np.float32)
+    assert x.size == n
+    ct = rng.normal(size=n).astype(np.float32)
+    ct[:50] = rng.uniform(1e-45, 2.0**-126, 50)  # subnormal cotangents
+    want = np.asarray(jax.jit(jnp.log)(x))
+    want_g = np.asarray(jax.jit(jax.vmap(jax.grad(jnp.log)))(x))
+    want_vjp = np.asarray(jax.jit(lambda x, c: jax.vjp(jnp.log, x)[1](c)[0])(x, ct))
+    t = torch.from_numpy(x).requires_grad_(True)
+    out = f32.log(t)
+    np.testing.assert_array_equal(out.detach().numpy().view(np.int32), want.view(np.int32))
+    (g,) = torch.autograd.grad(out, t, torch.ones_like(out), retain_graph=True)
+    np.testing.assert_array_equal(g.numpy().view(np.int32), want_g.view(np.int32))
+    (g,) = torch.autograd.grad(out, t, torch.from_numpy(ct))
+    np.testing.assert_array_equal(g.numpy().view(np.int32), want_vjp.view(np.int32))
+
+
+def test_get_refl_bit_equal_jax():
+    from tpu_splat_torch.model.state import GaussianState
+
+    refl = np.random.default_rng(6).uniform(-12, 6, (100_000, 1)).astype(np.float32)
+    z = torch.zeros(1)
+    st = GaussianState(xyz=z, features_dc=z, features_rest=z, scaling=z, rotation=z,
+                       opacity=z, refl=torch.from_numpy(refl), env=None, alive=z)
+    want = np.asarray(jax.jit(lambda r: jax.nn.sigmoid(r[:, 0]))(refl))
+    np.testing.assert_array_equal(st.get_refl().numpy().view(np.int32), want.view(np.int32))

@@ -96,7 +96,8 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def _flush(v: torch.Tensor) -> torch.Tensor:
-    return torch.where(v.abs() < _TINY, torch.zeros_like(v), v)
+    # to a zero of the same sign, as the CPU's flush-to-zero mode
+    return torch.where(v.abs() < _TINY, v * 0.0, v)
 
 
 _LOG2E = 1.44269504088896341
@@ -143,11 +144,10 @@ _LOG_Q1, _LOG_Q2 = _f32c(-2.12194440e-4), _f32c(0.693359375)
 _SQRTHF = _f32c(0.707106781186547524)
 
 
-def log(x: torch.Tensor) -> torch.Tensor:
+def _log(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 log: x = 2^e m with m in [sqrt(1/2), sqrt(2)), log(m)
-    by the Cephes degree-8 polynomial in three parts, e ln2 in two steps.
-    It carries no gradient."""
-    x = x.detach().float()
+    by the Cephes degree-8 polynomial in three parts, e ln2 in two steps."""
+    x = x.float()
     m, e = torch.frexp(torch.clamp(x, min=_TINY))  # m in [0.5, 1)
     small = m < _SQRTHF
     e = (e - small.int()).float()
@@ -181,6 +181,20 @@ class _Exp(torch.autograd.Function):
         return g * out
 
 
+class _Log(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _log(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # XLA's VJP of log is one divide, g / x, on operands and a result
+        # below the smallest normal flushed to zero
+        (x,) = ctx.saved_tensors
+        return _flush((_flush(g).double() / _flush(x.float())).float())
+
+
 class _Sigmoid(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
@@ -197,6 +211,11 @@ class _Sigmoid(torch.autograd.Function):
 def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 exp; its gradient is g * exp(x), as for torch.exp."""
     return _Exp.apply(x)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log; its gradient is g / x as XLA divides."""
+    return _Log.apply(x)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

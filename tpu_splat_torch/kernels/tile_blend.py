@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from tpu_splat_torch.core import f32
 from tpu_splat_torch.kernels import LAUNCHES
 from tpu_splat_torch.raster.config import (
     TILE,
@@ -139,7 +140,7 @@ def pack_features(
     packs its payload rows in bf16 pairs)."""
     P_ = opacity.shape[0]
     # a device fill, not a host copy (which would synchronize the stream)
-    lo = torch.log(torch.maximum(opacity, opacity.new_full((), 1e-12)))
+    lo = f32.log(torch.maximum(opacity, opacity.new_full((), 1e-12)))
     g24 = torch.cat(
         [
             hom.reshape(P_, 9),

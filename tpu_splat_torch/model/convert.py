@@ -117,3 +117,84 @@ def train_state_to_numpy(ts) -> dict:
         step=int(ts.step),
         opacity_lr=float(ts.opacity_lr),
     )
+
+
+# ---------------------------------------------------------------------------
+# The JAX TrainState's leaf order (checkpoint `leaf_i` arrays)
+
+_GAUSSIAN_LEAVES = _FLOAT_LEAVES + ("env.texture", "env.fail_value", "alive", "active_sh_degree")
+_ISP_FIELDS = ("gain", "bias", "log_gamma", "ctrl_gain", "ctrl_bias", "ctrl_log_gamma",
+               "vig_coef", "vig_center")
+_PARAM_KEYS = _FLOAT_LEAVES + ("env_texture", "env_fail")
+
+
+def train_state_leaf_names(has_isp: bool) -> list[str]:
+    """The leaves of the JAX package's `TrainState` in `jax.tree.flatten`
+    order (tpu_splat/train/step.py:TrainState): the GaussianState's fields
+    in declaration order (the cubemap's two in its NamedTuple's;
+    `max_sh_degree` is static, not a leaf), the AdamState's `mu` and `nu`
+    dicts with their keys sorted (the parameters, and the `isp_*` leaves
+    when the ISP is on), its count, the DensifyStats, `step`, `opacity_lr`,
+    the PRNG `key`, and the ISPParams when present."""
+    keys = sorted(_PARAM_KEYS + tuple(f"isp_{f}" for f in _ISP_FIELDS) if has_isp
+                  else _PARAM_KEYS)
+    names = [f"gaussians.{k}" for k in _GAUSSIAN_LEAVES]
+    names += [f"opt.{m}.{k}" for m in ("mu", "nu") for k in keys] + ["opt.count"]
+    names += [f"stats.{k}" for k in _STATS] + ["step", "opacity_lr", "key"]
+    if has_isp:
+        names += [f"isp.{f}" for f in _ISP_FIELDS]
+    return names
+
+
+def prng_key_bits(seed: int) -> np.ndarray:
+    """The bits of `jax.random.PRNGKey(seed)` as uint32[2], with JAX's
+    default 32-bit integers: threefry2x32 keeps the seed's low word."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
+def train_state_to_leaves(ts) -> dict:
+    """leaf name -> numpy array in the JAX leaves' dtypes (integer scalars
+    int32), with `jax.random.PRNGKey(0)` (`TrainState.create`'s default
+    seed) in the `key` slot: the port's draws come from its generator."""
+    d = train_state_to_numpy(ts)
+    g = d["gaussians"]
+    out = {f"gaussians.{k}": g[k] for k in _FLOAT_LEAVES}
+    out.update({
+        "gaussians.env.texture": g["texture"], "gaussians.env.fail_value": g["fail_value"],
+        "gaussians.alive": g["alive"],
+        "gaussians.active_sh_degree": np.asarray(g["active_sh_degree"], np.int32),
+        "opt.count": np.asarray(d["count"], np.int32),
+        "step": np.asarray(d["step"], np.int32),
+        "opacity_lr": np.asarray(d["opacity_lr"], np.float32),
+        "key": prng_key_bits(0),
+    })
+    for m in ("mu", "nu"):
+        out.update({f"opt.{m}.{k}": v for k, v in d[m].items()})
+    out.update({f"stats.{k}": v for k, v in d["stats"].items()})
+    if d["isp"] is not None:
+        out.update({f"isp.{k}": v for k, v in d["isp"].items()})
+    names = train_state_leaf_names(d["isp"] is not None)
+    if set(names) != set(out):
+        raise ValueError(f"train state leaves {sorted(set(out) ^ set(names))} out of place")
+    return {k: out[k] for k in names}
+
+
+def train_state_from_leaves(leaves: dict, max_sh_degree: int, device="cuda"):
+    """The reverse of `train_state_to_leaves` (the `key` slot is not read;
+    the generator is seeded 0, as `TrainState.create` seeds it)."""
+    has_isp = "isp.gain" in leaves
+    names = train_state_leaf_names(has_isp)
+    if set(names) != set(leaves):
+        raise ValueError(f"train state leaves {sorted(set(leaves) ^ set(names))} out of place")
+    g = {k: leaves[f"gaussians.{k}"] for k in _FLOAT_LEAVES}
+    g.update(texture=leaves["gaussians.env.texture"],
+             fail_value=leaves["gaussians.env.fail_value"],
+             alive=leaves["gaussians.alive"],
+             active_sh_degree=int(leaves["gaussians.active_sh_degree"]),
+             max_sh_degree=max_sh_degree)
+    pre = lambda p: {k[len(p):]: v for k, v in leaves.items() if k.startswith(p)}
+    return train_state_from_numpy(dict(
+        gaussians=g, mu=pre("opt.mu."), nu=pre("opt.nu."), count=int(leaves["opt.count"]),
+        stats=pre("stats."), isp=pre("isp.") if has_isp else None,
+        step=int(leaves["step"]), opacity_lr=leaves["opacity_lr"],
+    ), device=device)

@@ -64,7 +64,7 @@ class GaussianState:
         return f32.sigmoid(self.opacity[:, 0]) * self.alive
 
     def get_refl(self) -> torch.Tensor:
-        return torch.sigmoid(self.refl[:, 0])
+        return f32.sigmoid(self.refl[:, 0])
 
     def get_features(self) -> torch.Tensor:
         """[P,M,3] SH coefficients with inactive bands masked."""

@@ -1,5 +1,5 @@
 """Loss library (port of tpu_splat/train/losses.py; reference
-utils/loss_utils.py): L1, L2, PSNR and SSIM (window 11, sigma 1.5,
+utils/loss_utils.py): L1, L2, PSNR, the edge-aware smoothness and SSIM (window 11, sigma 1.5,
 C1 = 0.01^2, C2 = 0.03^2) as a same-padded depthwise convolution.
 
 Images are channels-last [H, W, C] (or [B, H, W, C]), as in the JAX package.
@@ -21,6 +21,19 @@ def l2_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mse = torch.mean((a - b) ** 2)
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+
+
+def smooth_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """Edge-aware second-order disparity smoothness (reference
+    utils/loss_utils.py:51-58). disp [H,W] or [H,W,1], img [H,W,C],
+    channels-last."""
+    if disp.dim() == 3:
+        disp = disp[..., 0]
+    gx = torch.abs(disp[1:-1, :-2] + disp[1:-1, 2:] - 2 * disp[1:-1, 1:-1])
+    gy = torch.abs(disp[:-2, 1:-1] + disp[2:, 1:-1] - 2 * disp[1:-1, 1:-1])
+    ix = torch.mean(torch.abs(img[1:-1, :-2] - img[1:-1, 2:]), dim=-1) * 0.5
+    iy = torch.mean(torch.abs(img[:-2, 1:-1] - img[2:, 1:-1]), dim=-1) * 0.5
+    return torch.mean(gx * torch.exp(-ix)) + torch.mean(gy * torch.exp(-iy))
 
 
 def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
