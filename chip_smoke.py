@@ -30,21 +30,35 @@ checks, test renders, a PLY snapshot and a checkpoint, and holds that the
 run fits its views (the train-set PSNR rises, the loss falls; the held-out
 view's PSNR is recorded) and that densify changed the cloud; then it checks
 the files: the reloaded PLY renders bit equal, the checkpoint round-trips
-bit equal, and a second run resumes from it. Each phase prints one
-line; every failed check raises, so the exit code is not 0. Details go to
-chiprun_out/chip_smoke.json. The last three lines are the kernels' JSON
-record (launches over the 4 timed tight training steps), the card's name
-and power limit as nvidia-smi reports them, and the result line.
+bit equal, and a second run resumes from it. Phase 9 evaluates through the
+evaluation CLIs, each `main` called in this process on the card with the
+launch counts set to 0 before it: the bench cloud saved as a model of
+phase 8's scene is rendered (`scripts/render.py`, at 40 dB PSNR or more
+against phase 8's PNGs of it), scored (`metrics.py`, against phase 9's own means)
+and timed (`eval_fps.py`, one forward launch a render); phase 8's trained
+model is rendered from its PLY (the test PSNR within 0.05 dB of the
+trainer's) and from its checkpoint with the ISP, its normal error measured
+(`eval_mae.py`), its visible Gaussians pruned (`visible_gaussians.py`, the
+pruned model re-renders every view), trajectories rendered at full width
+(`render_videos.py`, `video.py`), and the reporting tools read the
+outputs. Each phase prints one line a step; every failed check raises,
+so the exit code is not 0. Details go to
+chiprun_out/chip_smoke.json. The last four lines are phase 9's forward
+launches by step, the kernels' JSON record (launches over the 4 timed
+tight training steps), the card's name and power limit as nvidia-smi
+reports them, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits with a non-zero code and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -156,6 +170,18 @@ P8_ARGS = ["-r", "1", "--eval", "--tight_culling", "--disable_viewer", "-q",
 P8_DENSIFY = 200  # the densify event of that schedule (train/loop.py)
 P8_LOSS_WINDOW = 50  # steps averaged at each end of the run for the loss check
 P8_WARMUP = 5  # first steps left out of the step-time spread
+
+# evaluating a trained model (slice 7): the evaluation CLIs in this process,
+# on the bench cloud saved as a model of phase 8's scene (9a-9c, at the
+# bench capacities) and on phase 8's trained model (9d-9h)
+P9_BENCH_CAPS = ["--max_tiles_per_gaussian", "32", "--max_instances", "3981312",
+                 "--tile_depth", "2048"]
+P9_MIN_PSNR = 40.0  # dB, 9a's renders against phase 8's PNGs of the same cloud
+P9_FPS_REPEATS = 20
+P9_TRAINER_GAP = 0.05  # dB, 9d: the PLY renders' test PSNR against the trainer's
+P9_METRIC_TOL = dict(PSNR=1e-4, SSIM=1e-5)  # results.json against phase 9's own means
+P9_MAE_TOL = 1e-4  # degrees, mae.txt against mae_degrees on the same tensors
+P9_FRAMES = 8  # trajectory frames of render_videos.py and video.py
 
 
 def log(phase: str, **kv) -> None:
@@ -787,6 +813,22 @@ def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
     return -q if q[0] < 0 else q
 
 
+def colmap_rig(cams):
+    """One PINHOLE camera (the first view's) and the views' poses, the k-th
+    named view_kk.png, as COLMAP records."""
+    from tpu_splat_torch.data.colmap import ColmapCamera, ColmapImage
+
+    K = cams[0].K.cpu().double().numpy()
+    colmap_cams = {1: ColmapCamera(1, "PINHOLE", cams[0].width, cams[0].height,
+                                   np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
+    imgs = {}
+    for k, cam in enumerate(cams):
+        wv = cam.world_view.cpu().double().numpy()
+        imgs[k + 1] = ColmapImage(k + 1, rotmat_to_qvec(wv[:3, :3]), wv[:3, 3], 1,
+                                  f"view_{k:02d}.png")
+    return colmap_cams, imgs
+
+
 def write_colmap_scene(root, state, cams, cfg, bg, seed=8, points=P8_POINTS):
     """A COLMAP scene of `cams` rendered from `state`: uint8 PNGs under
     images/, one PINHOLE camera, the views' poses, and `points` points
@@ -795,30 +837,24 @@ def write_colmap_scene(root, state, cams, cfg, bg, seed=8, points=P8_POINTS):
     import torch
 
     from tpu_splat_torch.core.sh import SH_C0
-    from tpu_splat_torch.data.colmap import ColmapCamera, ColmapImage, write_model
+    from tpu_splat_torch.data.colmap import write_model
     from tpu_splat_torch.data.native_loader import write_png
     from tpu_splat_torch.renderer import render_fast
 
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
-    K = cams[0].K.cpu().double().numpy()
-    colmap_cams = {1: ColmapCamera(1, "PINHOLE", cams[0].width, cams[0].height,
-                                   np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
-    imgs, by_name = {}, {}
+    by_name = {}
     for k, cam in enumerate(cams):
         out = render_fast(state, cam, cfg, bg, collect_weights=False)
         img = (torch.clamp(out.render, 0.0, 1.0) * 255.0).round().to(torch.uint8).cpu().numpy()
         name = f"view_{k:02d}"
         write_png(os.path.join(root, "images", name + ".png"), img)
-        wv = cam.world_view.cpu().double().numpy()
-        imgs[k + 1] = ColmapImage(k + 1, rotmat_to_qvec(wv[:3, :3]), wv[:3, 3], 1,
-                                  name + ".png")
         by_name[name] = cam
     live = torch.nonzero(state.alive).squeeze(1).cpu().numpy()
     idx = np.sort(np.random.default_rng(seed).choice(live, points, replace=False))
     xyz = state.xyz.cpu().numpy()[idx].astype(np.float64)
     dc = state.features_dc[:, 0].cpu().numpy()[idx]
     rgb = np.clip((dc * SH_C0 + 0.5) * 255.0, 0, 255).round().astype(np.uint8)
-    write_model(colmap_cams, imgs, (xyz, rgb, np.zeros(points)),
+    write_model(*colmap_rig(cams), (xyz, rgb, np.zeros(points)),
                 os.path.join(root, "sparse", "0"), ext=".bin")
     return by_name
 
@@ -922,18 +958,8 @@ def run_train_cli(argv, stop_at, device):
 
 def phase8_train_from_disk(state, dev, detail):
     """Slice 6: train from a COLMAP scene on disk through the train CLI. Its
-    files (~2 GB of images, snapshots and checkpoints) are removed after."""
-    import shutil
-
-    try:
-        return _phase8(state, dev, detail)
-    finally:
-        shutil.rmtree(P8_DIR, ignore_errors=True)
-
-
-def _phase8(state, dev, detail):
-    import shutil
-
+    files (~2 GB of images, snapshots and checkpoints) stay for phase 9;
+    main removes them after."""
     import torch
 
     from tpu_splat_torch.data.scene import Scene
@@ -1078,6 +1104,394 @@ def _phase8(state, dev, detail):
         test_psnr=f"{psnr[1]:.2f}->{psnr[P8_STOP]:.2f}", alive=out["alive"],
         capacity=out["capacity"], resumed_to=ts_r.step)
     return out
+
+
+@contextlib.contextmanager
+def no_lpips_weights(home):
+    """TORCH_HOME pointed at an empty directory and LPIPS_WEIGHTS unset, so
+    the metrics CLI reports LPIPS as NaN (plus GMSD) whatever the machine
+    has cached; the environment is restored after."""
+    saved = {k: os.environ.get(k) for k in ("TORCH_HOME", "LPIPS_WEIGHTS")}
+    os.makedirs(home, exist_ok=True)
+    os.environ["TORCH_HOME"] = home
+    os.environ.pop("LPIPS_WEIGHTS", None)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase9_evaluate(state, dev, detail):
+    """Slice 7: the evaluation CLIs (render, metrics, eval_fps, eval_mae,
+    visible_gaussians, render_videos, video and the reporting tools), each
+    `main` called in this process on the card with the kernel launch counts
+    set to 0 just before it and read just after. 9a-9c evaluate the bench
+    cloud saved as a model of phase 8's scene, 9d-9h phase 8's trained
+    model. Every image the CLIs write through `save_image_u8` is held
+    finite. -> {step: tile_blend_forward launches}."""
+    import argparse
+    import glob
+    import types
+
+    import torch
+
+    from tpu_splat_torch.config import build_parser, get_combined_args, save_cfg_args
+    from tpu_splat_torch.data.colmap import write_model
+    from tpu_splat_torch.data.native_loader import decode_png
+    from tpu_splat_torch.data.scene import Scene
+    from tpu_splat_torch.data.synthetic import orbit_camera
+    from tpu_splat_torch.eval import image_utils
+    from tpu_splat_torch.eval.trajectories import generate_path
+    from tpu_splat_torch.isp.ppisp import apply_isp
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.model.io import (
+        load_checkpoint_gaussians,
+        load_checkpoint_isp,
+        load_ply,
+        save_ply,
+    )
+    from tpu_splat_torch.renderer import render_fast
+    from tpu_splat_torch.scripts import (
+        collect_results,
+        eval_fps,
+        eval_mae,
+        extract_metrics,
+        metrics,
+        render_videos,
+        report,
+        video,
+        view_diff_maps,
+        visible_gaussians,
+    )
+    from tpu_splat_torch.scripts import render as render_cli
+    from tpu_splat_torch.scripts.eval_mae import mae_degrees
+    from tpu_splat_torch.scripts.render import add_capacity_flags, capacity_config, find_max_iteration
+    from tpu_splat_torch.train.losses import psnr, ssim
+
+    scene_dir, model_dir = os.path.join(P8_DIR, "scene"), os.path.join(P8_DIR, "model")
+    bench_dir, ck_dir = os.path.join(P8_DIR, "bench"), os.path.join(P8_DIR, "checkpoint")
+    torch_home = os.path.join(P8_DIR, "torch_home")
+    bgd = torch.zeros(3, device=dev)
+    launches, seconds, saved, out = {}, {}, [], {}
+    real_save = image_utils.save_image_u8
+
+    def recording_save(path, img):
+        saved.append((path, bool(np.isfinite(np.asarray(img)).all())))
+        real_save(path, img)
+
+    def run(label, cli, argv, renders=True):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        n_saved = len(saved)
+        t0 = time.perf_counter()
+        cli.main(argv, device=str(dev))
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        launches[label] = LAUNCHES.get("tile_blend_forward", 0)
+        if renders and launches[label] < 1:
+            raise AssertionError(f"{label}: tile_blend_forward was not launched")
+        bad = [p for p, finite in saved[n_saved:] if not finite]
+        if bad:
+            raise AssertionError(f"{label}: non-finite images {bad[:3]}")
+
+    def u8(path):
+        img = decode_png(path)
+        if img is None:
+            raise AssertionError(f"{path}: not decoded")
+        return img[..., :3]
+
+    def on_card(img):  # as the metrics CLI: / 255.0 in float64, then float32
+        return torch.as_tensor(img / 255.0, dtype=torch.float32, device=dev)
+
+    def png_metrics(split_dir):
+        """{name: (PSNR, SSIM)} of renders/ against gt/ under split_dir."""
+        names = sorted(os.listdir(os.path.join(split_dir, "renders")))
+        res = {}
+        for n in names:
+            a, b = (on_card(u8(os.path.join(split_dir, d, n))) for d in ("renders", "gt"))
+            res[n] = (float(psnr(a, b)), float(ssim(a, b)))
+        return res
+
+    def results(model, method):
+        with open(os.path.join(model, "results.json")) as f:
+            return json.load(f)[method]
+
+    def hold_capacity(model, cams, cfg):
+        """A CLI's config holds this model's frames: no instance dropped, no
+        pad past its budget. -> the most instances."""
+        most = 0
+        for cam in cams:
+            o = render_fast(model, cam, cfg, bgd)
+            n = int(o.num_instances)
+            if n > cfg.max_instances or int(o.pad_overflow):
+                raise AssertionError(f"{n} instances (capacity {cfg.max_instances}), "
+                                     f"pad overflow {int(o.pad_overflow)}")
+            most = max(most, n)
+        return most
+
+    image_utils.save_image_u8 = recording_save
+    try:
+        # 9a. the bench cloud as a model of phase 8's scene, through render.py
+        t0 = time.perf_counter()
+        save_ply(state, os.path.join(bench_dir, "point_cloud", "iteration_1", "point_cloud.ply"))
+        save_cfg_args(bench_dir, build_parser().parse_args(
+            ["-s", scene_dir, "-m", bench_dir, "-r", "1", "--eval"]))
+        ply_s = time.perf_counter() - t0
+        caps_parser = argparse.ArgumentParser()
+        add_capacity_flags(caps_parser)
+        bench_cfg = capacity_config(caps_parser.parse_args(P9_BENCH_CAPS))
+        scene = Scene(scene_dir, resolution=1, eval_split=True, shuffle=False, device=dev)
+        views = [lc.camera for lc in (*scene.test_cameras, *scene.train_cameras)]
+        test_cam = views[0]
+        inst_a = hold_capacity(state, views, bench_cfg)
+        run("9a render", render_cli, ["-m", bench_dir, *P9_BENCH_CAPS])
+        split = {k: os.path.join(bench_dir, k, "ours_1") for k in ("train", "test")}
+        n_png = {k: (len(os.listdir(os.path.join(d, "renders"))), len(os.listdir(os.path.join(d, "gt"))))
+                 for k, d in split.items()}
+        envs = [os.path.exists(os.path.join(bench_dir, f"env_cood{i}.png")) for i in (1, 2)]
+        if n_png != {"train": (P8_VIEWS - 1,) * 2, "test": (1, 1)} or not all(envs):
+            raise AssertionError(f"9a wrote {n_png} renders/gt, env previews {envs}")
+        if launches["9a render"] != P8_VIEWS:
+            raise AssertionError(f"9a: {launches['9a render']} launches for {P8_VIEWS} views")
+        gt_equal = np.array_equal(u8(os.path.join(split["test"], "gt", "00000.png")),
+                                  u8(os.path.join(scene_dir, "images", "view_00.png")))
+        bench_psnr = {f"{k}/{n}": v[0] for k, d in split.items() for n, v in png_metrics(d).items()}
+        min_psnr = min(bench_psnr.values())
+        if min_psnr < P9_MIN_PSNR or not gt_equal:
+            raise AssertionError(f"9a: PSNR against phase 8's PNGs {bench_psnr}, gt equal {gt_equal}")
+        out["render_bench"] = dict(ply_save_s=ply_s, cli_s=seconds["9a render"],
+                                   launches=launches["9a render"], psnr=bench_psnr,
+                                   min_psnr=min_psnr, instances=inst_a)
+        log("9a render", gaussians=state.num_alive, views=P8_VIEWS, pngs=json.dumps(n_png),
+            min_psnr=f"{min_psnr:.2f}", instances=inst_a, launches=launches["9a render"],
+            cli_s=f"{seconds['9a render']:.2f}", ply_save_s=f"{ply_s:.2f}")
+
+        # 9b. metrics.py on 9a's output, against phase 9's own means
+        with no_lpips_weights(torch_home):
+            run("9b metrics", metrics, ["-m", bench_dir], renders=False)
+        res = results(bench_dir, "ours_1")
+        test_views = png_metrics(split["test"]).values()
+        own = dict(PSNR=float(np.mean([v[0] for v in test_views])),
+                   SSIM=float(np.mean([v[1] for v in test_views])))
+        off = {k: abs(res[k] - own[k]) for k in own}
+        if (any(off[k] > P9_METRIC_TOL[k] for k in off) or not math.isnan(res["LPIPS"])
+                or res["LPIPS_METRIC"] != "unavailable (NaN)" or not math.isfinite(res["GMSD"])):
+            raise AssertionError(f"9b: results.json {res} against {own}")
+        out["metrics_bench"] = dict(results=res, own=own, off=off)
+        log("9b metrics", psnr=f"{res['PSNR']:.4f}", ssim=f"{res['SSIM']:.5f}",
+            gmsd=f"{res['GMSD']:.5f}", lpips=res["LPIPS_METRIC"].replace(" ", "_"),
+            psnr_off=f"{off['PSNR']:.2g}", ssim_off=f"{off['SSIM']:.2g}")
+
+        # 9c. eval_fps.py on the bench model: one warm-up, then the repeats
+        run("9c eval_fps", eval_fps, ["-m", bench_dir, "--repeats", str(P9_FPS_REPEATS),
+                                      *P9_BENCH_CAPS])
+        with open(os.path.join(bench_dir, "fps.txt")) as f:
+            fps, count = f.read().split()
+        want = 1 + P9_FPS_REPEATS * n_png["test"][0]
+        if launches["9c eval_fps"] != want or int(count) != state.num_alive:
+            raise AssertionError(f"9c: {launches['9c eval_fps']} launches (want {want}), "
+                                 f"count {count} (want {state.num_alive})")
+        served = detail["serve"]
+        out["eval_fps"] = dict(fps=float(fps), ms_frame=1e3 / float(fps), gaussians=int(count),
+                               launches=want, served_view0_ms=served["view0"]["wall_ms"],
+                               served_full_shape_ms=served["full-shape"]["wall_ms"])
+        log("9c eval_fps", fps=f"{float(fps):.2f}", ms_frame=f"{1e3 / float(fps):.2f}",
+            gaussians=count, launches=want,
+            phase4_served_ms=f"{served['view0']['wall_ms']:.2f}",
+            phase4_full_shape_ms=f"{served['full-shape']['wall_ms']:.2f}")
+
+        # 9d. phase 8's trained model: the PLY of its newest iteration, then
+        # its checkpoint with the ISP (a model directory of its own: the
+        # train CLI's cfg_args holds start_checkpoint=None, and persisted
+        # values win over the command line, as in the JAX package)
+        run("9d render", render_cli, ["-m", model_dir])
+        ply_test = png_metrics(os.path.join(model_dir, "test", f"ours_{P8_STOP}"))
+        ply_psnr = float(np.mean([v[0] for v in ply_test.values()]))
+        trainer = detail["train_from_disk"]["test_psnr"][P8_STOP]
+        if abs(ply_psnr - trainer) > P9_TRAINER_GAP:
+            raise AssertionError(f"9d: test PSNR {ply_psnr} from the PNGs, the trainer's {trainer}")
+        ck = os.path.join(model_dir, f"chkpnt{P8_RESUME_FROM}.npz")
+        save_cfg_args(ck_dir, build_parser().parse_args(
+            ["-s", scene_dir, "-m", ck_dir, "-r", "1", "--eval"]))
+        run("9d render checkpoint", render_cli, ["-m", ck_dir, "--start_checkpoint", ck,
+                                                  *P9_BENCH_CAPS])
+        with no_lpips_weights(torch_home):
+            run("9d metrics", metrics, ["-m", model_dir, ck_dir], renders=False)
+        res_ply, res_ck = results(model_dir, f"ours_{P8_STOP}"), results(ck_dir, f"ours_{P8_RESUME_FROM}")
+        # the checkpoint's test render with the ISP's controller, in process
+        ck_state, _ = load_checkpoint_gaussians(ck, device=dev)
+        isp = load_checkpoint_isp(ck, device=dev)
+        plain = render_fast(ck_state, test_cam, bench_cfg, bgd).render
+        q = lambda t: np.clip(t.cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8).astype(int)
+        png = u8(os.path.join(ck_dir, "test", f"ours_{P8_RESUME_FROM}", "renders", "00000.png"))
+        isp_off = np.abs(png - q(apply_isp(isp, plain, frame_idx=-1))).max(-1)
+        isp_moved = int((np.abs(png - q(plain)).max(-1) > 0).sum())
+        del ck_state, plain
+        if isp_off.max() > 1 or int((isp_off > 0).sum()) > FLIPS_PER_4096 * isp_off.size / 4096 \
+                or isp_moved == 0:
+            raise AssertionError(f"9d: checkpoint PNG off the in-process ISP render by "
+                                 f"{int(isp_off.max())} levels; the ISP moved {isp_moved} px")
+        out["trained"] = dict(test_psnr_png=ply_psnr, trainer_test_psnr=trainer,
+                              gap=ply_psnr - trainer, results_ply=res_ply, results_checkpoint=res_ck,
+                              checkpoint_isp_px_moved=isp_moved,
+                              checkpoint_off_inprocess_px=int((isp_off > 0).sum()))
+        log("9d trained", test_psnr_png=f"{ply_psnr:.4f}", trainer=f"{trainer:.4f}",
+            gap=f"{ply_psnr - trainer:+.4f}", metrics_ply=f"{res_ply['PSNR']:.4f}",
+            metrics_checkpoint=f"{res_ck['PSNR']:.4f}", isp_px_moved=isp_moved,
+            launches=f"{launches['9d render']},{launches['9d render checkpoint']}")
+
+        # 9e. eval_mae.py against the bench cloud's normals of the test view
+        normals_dir = os.path.join(scene_dir, "normals")
+        gt_normal = render_fast(state, test_cam, bench_cfg, bgd).normal
+        real_save(os.path.join(normals_dir, "view_00.png"), gt_normal.cpu().numpy() * 0.5 + 0.5)
+        trained = load_ply(os.path.join(model_dir, "point_cloud", f"iteration_{P8_STOP}",
+                                        "point_cloud.ply"), device=dev)
+        # the config eval_mae, visible_gaussians and the videos render at:
+        # their capacity flags, which the trainer's cfg_args fills (the JAX
+        # CLIs' RasterConfig() holds 1<<20 instances; this model needs more)
+        parser = build_parser(fill_none_model=True)
+        add_capacity_flags(parser)
+        cli_cfg = capacity_config(get_combined_args(parser, ["-m", model_dir]))
+        inst_e = hold_capacity(trained, [test_cam], cli_cfg)
+        run("9e eval_mae", eval_mae, ["-m", model_dir, "--gt_normals_dir", normals_dir])
+        with open(os.path.join(model_dir, "mae.txt")) as f:
+            mae = float(f.read())
+        o = render_fast(trained, test_cam, cli_cfg, bgd)
+        gt = u8(os.path.join(normals_dir, "view_00.png")) / 255.0 * 2.0 - 1.0
+        mae_own = mae_degrees(o.normal.cpu().numpy(), gt, o.alpha.cpu().numpy()[..., 0])
+        if not abs(mae - mae_own) <= P9_MAE_TOL:
+            raise AssertionError(f"9e: mae.txt {mae} against {mae_own}")
+        out["eval_mae"] = dict(mae=mae, in_process=mae_own, instances=inst_e)
+        log("9e eval_mae", mae_deg=f"{mae:.4f}", in_process=f"{mae_own:.4f}", instances=inst_e,
+            capacity=cli_cfg.max_instances, launches=launches["9e eval_mae"])
+
+        # 9f. visible_gaussians.py over every view (eval_split off: all train)
+        inst_f = hold_capacity(trained, views, cli_cfg)
+        run("9f visible_gaussians", visible_gaussians, ["-m", model_dir, "--iteration", str(P8_STOP)])
+        with open(os.path.join(model_dir, "visible.txt")) as f:
+            visible, total = map(int, f.read().split())
+        pruned = load_ply(os.path.join(model_dir, "point_cloud", f"iteration_{P8_STOP}_visible",
+                                       "point_cloud.ply"), device=dev)
+        # the pruned model re-renders every view: the kernel carries T from
+        # one 128-instance chunk to the next (the JAX chunk semantics), so
+        # pruning shifts the chunk bounds and rounds T apart by ulps; and a
+        # Gaussian with max weight 0 may still have passed the alpha test as
+        # the one that ends a pixel (its T_after < 1e-4), whose removal can
+        # let a later one in (PARITY.md D4). So: colour and alpha within TOL
+        # but at most FLIPS_PER_4096 px a view; every word apart is counted.
+        words, over, worst = 0, 0, 0.0
+        seen = torch.zeros(pruned.capacity, dtype=torch.bool, device=dev)
+        for cam in views:
+            a, b = render_fast(trained, cam, cli_cfg, bgd), render_fast(pruned, cam, cli_cfg, bgd)
+            words += sum(int((getattr(a, f).view(torch.int32) != getattr(b, f).view(torch.int32)).sum())
+                         for f in ("render", "alpha"))
+            d = torch.maximum((a.render - b.render).abs().amax(-1), (a.alpha - b.alpha).abs()[..., 0])
+            over += int((d > TOL).sum())
+            worst = max(worst, float(d.max()))
+            seen |= b.gaussian_weights > 0.0
+        try:
+            find_max_iteration(model_dir)
+            raise AssertionError("find_max_iteration read iteration_*_visible")
+        except ValueError:  # the JAX package's behaviour: later steps pass --iteration
+            pass
+        if not (visible <= total == trained.num_alive and pruned.num_alive == visible
+                and over <= FLIPS_PER_4096 * len(views) * H * W / 4096 and bool(seen.all())):
+            raise AssertionError(f"9f: visible {visible}/{total} (alive {trained.num_alive}), "
+                                 f"pruned re-render: {over} px over {TOL}, max {worst}, "
+                                 f"{int((~seen).sum())} kept Gaussians unseen")
+        out["visible"] = dict(visible=visible, total=total, instances=inst_f,
+                              rerender_words_apart=words, rerender_px_over_tol=over,
+                              rerender_max_abs=worst)
+        log("9f visible", visible=visible, total=total, rerender_words_apart=words,
+            rerender_px_over_tol=over, rerender_max_abs=f"{worst:.3g}", instances=inst_f,
+            launches=launches["9f visible_gaussians"])
+        del pruned, seen
+
+        # 9g. the trajectory CLIs (full render, render_fast) at full width.
+        # generate_path fits an ellipse around the cameras' centroid and
+        # aims at it (MipNeRF-360's path, for captures that circle the
+        # scene); phase 8's views span 3pi/8 of arc, so its path looks past
+        # the cloud: recorded below. The CLIs run on phase 8's trained PLY
+        # under a rig of eight views around the full orbit (phase 8's
+        # images, read but unused by these CLIs; the rig's cameras stand in
+        # for the CLI's COLMAP round trip, ~1e-8 apart, in the capacity hold)
+        arc_path = generate_path(scene.test_cameras + scene.train_cameras, n_frames=P9_FRAMES)
+        arc_lit = [float((render_fast(trained, c, cli_cfg, bgd).render > 0).any(-1).float().mean())
+                   for c in arc_path]
+        rig = [orbit_camera(H, W, radius=6.0, azimuth=0.4 + k * 2 * math.pi / P8_VIEWS,
+                            elevation=0.3, device=dev) for k in range(P8_VIEWS)]
+        orbit_scene, orbit_model = os.path.join(P8_DIR, "orbit_scene"), os.path.join(P8_DIR, "orbit")
+        os.makedirs(orbit_scene)
+        os.symlink(os.path.join(scene_dir, "images"), os.path.join(orbit_scene, "images"))
+        xyz = trained.xyz[:1024].cpu().double().numpy()
+        write_model(*colmap_rig(rig), (xyz, np.zeros((len(xyz), 3), np.uint8), np.zeros(len(xyz))),
+                    os.path.join(orbit_scene, "sparse", "0"))
+        ply_dir = os.path.join("point_cloud", f"iteration_{P8_STOP}")
+        shutil.copytree(os.path.join(model_dir, ply_dir), os.path.join(orbit_model, ply_dir))
+        save_cfg_args(orbit_model, build_parser().parse_args(
+            ["-s", orbit_scene, "-m", orbit_model, "-r", "1"]))
+        path = generate_path([types.SimpleNamespace(camera=c) for c in rig], n_frames=P9_FRAMES)
+        inst_g = hold_capacity(trained, path, bench_cfg)
+        del scene, trained
+        it = ["-m", orbit_model, "--iteration", str(P8_STOP), "--n_frames", str(P9_FRAMES),
+              *P9_BENCH_CAPS]
+        run("9g render_videos", render_videos, [*it, "--render_path"])
+        run("9g video", video, it)
+        traj = os.path.join(orbit_model, "traj", f"ours_{P8_STOP}")
+        frames = {k: sorted(glob.glob(os.path.join(traj, *g))) for k, g in
+                  (("color", ("renders", "*.png")), ("depth", ("depth", "*.png")),
+                   ("video", ("*.png",)))}
+        lit = {k: [float((u8(f) > 0).any(-1).mean()) for f in v] for k, v in frames.items()}
+        shapes = {u8(f).shape for v in frames.values() for f in v}
+        mp4 = {name: os.path.exists(os.path.join(orbit_model, name)) for name in
+               (f"traj_color_{P8_STOP}.mp4", f"traj_depth_{P8_STOP}.mp4", f"traj_{P8_STOP}.mp4")}
+        if (any(len(v) != P9_FRAMES for v in frames.values()) or shapes != {(H, W, 3)}
+                or min(min(v) for v in lit.values()) <= 0.0
+                or launches["9g render_videos"] != P9_FRAMES or launches["9g video"] != P9_FRAMES):
+            raise AssertionError(f"9g: frames {({k: len(v) for k, v in frames.items()})}, "
+                                 f"shapes {shapes}, lit {lit}, launches {launches}")
+        out["trajectories"] = dict(frames=P9_FRAMES, lit_share=lit, mp4=mp4, instances=inst_g,
+                                   phase8_arc_path_lit_share=arc_lit,
+                                   seconds={k: seconds[k] for k in ("9g render_videos", "9g video")})
+        log("9g trajectories", frames=P9_FRAMES, size=f"{H}x{W}",
+            min_lit_share=f"{min(min(v) for v in lit.values()):.3f}",
+            arc_path_lit=",".join(f"{v:.2f}" for v in arc_lit), instances=inst_g,
+            mp4=("written" if all(mp4.values()) else "muxer missing"),
+            render_videos_s=f"{seconds['9g render_videos']:.2f}", video_s=f"{seconds['9g video']:.2f}")
+
+        # 9h. the reporting tools on 9a's and 9d's outputs
+        run("9h view_diff_maps", view_diff_maps, ["-m", bench_dir, model_dir], renders=False)
+        sheets = (glob.glob(os.path.join(bench_dir, "test", "ours_1", "diff_maps", "*.png"))
+                  + glob.glob(os.path.join(model_dir, "test", f"ours_{P8_STOP}", "diff_maps", "*.png")))
+        scenes = ["bench", "model", "checkpoint"]
+        extract_metrics.main(["--output_path", P8_DIR, "--scenes", *scenes])
+        collect_results.main(["--output_path", P8_DIR, "--scenes", *scenes])
+        run("9h report", report, ["-m", model_dir, "--iteration", str(P8_STOP)], renders=False)
+        with open(os.path.join(P8_DIR, "results.csv")) as f:
+            csv_rows = [r.split("\t") for r in f.read().splitlines()]
+        with open(os.path.join(P8_DIR, "results_all.csv")) as f:
+            all_rows = [r.split("\t") for r in f.read().splitlines()]
+        with open(os.path.join(model_dir, "stats.json")) as f:
+            stats = json.load(f)
+        if (len(sheets) != 2 or any(u8(p).ndim != 3 for p in sheets)
+                or csv_rows[0][:3] != scenes or len(csv_rows) != 6
+                or [r[0] for r in all_rows] != ["scene", *scenes]
+                or all_rows[1][-1] != str(state.num_alive)
+                or stats["n_gaussians"] != total):
+            raise AssertionError(f"9h: sheets {sheets}, results.csv {csv_rows}, "
+                                 f"results_all.csv {all_rows}, stats {stats}")
+        out["reports"] = dict(diff_sheets=len(sheets), results_all=all_rows, stats=stats)
+        log("9h reports", diff_sheets=len(sheets), results_csv_rows=len(csv_rows),
+            results_all_rows=len(all_rows), stats_gaussians=stats["n_gaussians"])
+    finally:
+        image_utils.save_image_u8 = real_save
+    out.update(launches=launches, cli_seconds=seconds)
+    detail["evaluate"] = out
+    return launches
 
 
 def main() -> int:
@@ -1824,8 +2238,14 @@ def main() -> int:
     detail["serve_tight"] = served_tight
     del out_t
 
-    # 8. train from a COLMAP scene on disk through the train CLI
-    phase8_train_from_disk(state, dev, detail)
+    # 8. train from a COLMAP scene on disk through the train CLI; 9. evaluate
+    # the bench cloud and the trained model through the evaluation CLIs.
+    # Their files (~2 GB) are removed after.
+    try:
+        phase8_train_from_disk(state, dev, detail)
+        eval_launches = phase9_evaluate(state, dev, detail)
+    finally:
+        shutil.rmtree(P8_DIR, ignore_errors=True)
     del state
 
     # the kernels' record: launches over the 4 timed steps of the newest
@@ -1873,6 +2293,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     log("done", seconds=f"{detail['seconds']:.1f}")
+    print(json.dumps({"phase9_launches": {"tile_blend_forward": eval_launches}}))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

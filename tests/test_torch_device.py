@@ -755,3 +755,64 @@ def test_checkpoint_round_trip_of_a_1m_row_state_on_card(tmp_path):
         assert want[k].dtype == got[k].dtype and np.array_equal(
             want[k].reshape(-1).view(np.uint8), got[k].reshape(-1).view(np.uint8)), k
     assert torch.equal(back.generator.get_state(), ts.generator.get_state())
+
+
+def _blender_scene(root, n=4, size=64):
+    """A Blender scene of `n` orbit views (a red square on black, written by
+    the numpy PNG writer: no Pillow), the first one also the test view."""
+    import json
+
+    from tpu_splat_torch.data.native_loader import write_png
+
+    os.makedirs(root)
+    img = np.zeros((size, size, 3), np.uint8)
+    img[size // 4: 3 * size // 4, size // 4: 3 * size // 4] = [200, 60, 60]
+    frames = []
+    for i in range(n):
+        write_png(os.path.join(root, f"r_{i}.png"), img)
+        ang = 2 * np.pi * i / n
+        pos = np.array([4 * np.sin(ang), 0.0, 4 * np.cos(ang)])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, np.cross(right, fwd), -fwd, pos
+        frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
+    for split, fr in (("train", frames), ("test", frames[:1])):
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": fr}, f)
+
+
+@pytest.mark.gpu
+def test_render_cli_on_card_matches_cpu(tmp_path):
+    """scripts/render.py on a 64x64 scene, on the card and on the CPU from
+    one PLY: the same files; ground truth equal, every rendered PNG equal
+    but +-1 level on at most 8 px per 4096 (the knife-edge flips of
+    test_render_fast_on_card_matches_cpu, quantised)."""
+    _need_card()
+    from tpu_splat_torch.config import build_parser, save_cfg_args
+    from tpu_splat_torch.data.native_loader import decode_png
+    from tpu_splat_torch.model.io import save_ply
+    from tpu_splat_torch.scripts import render
+
+    src = str(tmp_path / "scene")
+    _blender_scene(src)
+    state = state_from_numpy(_scene(300, 7), device="cpu")
+    files = {}
+    for dev in ("cpu", "cuda"):
+        out = str(tmp_path / dev)
+        save_cfg_args(out, build_parser().parse_args(["-s", src, "-m", out, "--eval",
+                                                      "--sh_degree", "1"]))
+        save_ply(state, os.path.join(out, "point_cloud", "iteration_3", "point_cloud.ply"))
+        render.main(["-m", out, "--save_normals", "--save_refl", "--max_tiles_per_gaussian", "16",
+                     "--max_instances", "8192", "--tile_depth", "256"], device=dev)
+        files[dev] = sorted(os.path.relpath(os.path.join(d, f), out)
+                            for d, _, fs in os.walk(out) for f in fs if f.endswith(".png"))
+    assert files["cpu"] == files["cuda"] and len(files["cpu"]) == 2 + 4 * 5
+    for name in files["cpu"]:
+        a, b = (decode_png(str(tmp_path / dev / name)).astype(np.int16) for dev in ("cpu", "cuda"))
+        off = np.abs(a - b).max(-1)
+        if "/gt/" in name:
+            assert not off.any(), name
+        else:
+            assert off.max() <= 1 and int((off > 0).sum()) <= 8 * off.size / 4096, name
