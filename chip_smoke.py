@@ -41,10 +41,22 @@ trainer's) and from its checkpoint with the ISP, its normal error measured
 (`eval_mae.py`), its visible Gaussians pruned (`visible_gaussians.py`, the
 pruned model re-renders every view), trajectories rendered at full width
 (`render_videos.py`, `video.py`), and the reporting tools read the
-outputs. Each phase prints one line a step; every failed check raises,
+outputs. Phase 10 extracts a mesh and serves the viewer, each `main` again
+in this process with the counts set to 0 before it: `extract_mesh.py` on
+phase 8's trained model at 512^3 over the bench cloud's cube (one forward
+launch a view, no view dropping an instance, fuse.ply read back, the seen
+vertices within a voxel of the rendered surface) and on phase 9's
+full-orbit rig at the default bounds, the card's TSDF grid and mesh held
+against the CPU's on the card's own maps; `view.py` in a thread on an
+ephemeral port serving a loopback client in all 11 modes at 1088x1920 (each
+frame the handler's render and encoder called directly, RGB that of
+`Camera.create` at the same pose and fov, one forward launch a frame, the
+round trip timed and split); the train CLI with its viewer on for 20
+steps, a client asking for a frame mid-run; `test_rasterizer --headless`.
+Each phase prints one line a step; every failed check raises,
 so the exit code is not 0. Details go to
-chiprun_out/chip_smoke.json. The last four lines are phase 9's forward
-launches by step, the kernels' JSON record (launches over the 4 timed
+chiprun_out/chip_smoke.json. The last four lines are phases 9 and 10's
+forward launches by step, the kernels' JSON record (launches over the 4 timed
 tight training steps), the card's name and power limit as nvidia-smi
 reports them, and the result line.
 
@@ -182,6 +194,31 @@ P9_TRAINER_GAP = 0.05  # dB, 9d: the PLY renders' test PSNR against the trainer'
 P9_METRIC_TOL = dict(PSNR=1e-4, SSIM=1e-5)  # results.json against phase 9's own means
 P9_MAE_TOL = 1e-4  # degrees, mae.txt against mae_degrees on the same tensors
 P9_FRAMES = 8  # trajectory frames of render_videos.py and video.py
+
+# extracting a mesh and serving the viewer (slice 8): extract_mesh on phase
+# 8's trained model (and on 9g's full-orbit rig at the default bounds),
+# view.py on that model and on the bench cloud, the train CLI with its
+# viewer on, test_rasterizer --headless
+P10_MESH_RES = 512
+P10_BOUNDS = 2.0  # the bench cloud's half-extent (build_state: uniform in [-2, 2]^3)
+P10_CHECK_RES = 128  # the card's grid against the CPU's on the card's maps
+P10_TSDF_TOL = 1e-6
+# the geometric check: for each vertex, over the views that see it (facing
+# the camera, inside the frame, alpha > 0.5), the least distance between
+# its camera depth and the rendered surf_depth at its pixel. A zero
+# crossing needs a voxel that some view put within the truncation band
+# (4 voxels) behind its surface, so at least half of the seen vertices lie
+# within that band, and at least a tenth of the vertices are seen; a mesh
+# off the renders' geometry (a transposed K, a swapped axis) has next to
+# none there. The trained model is a volumetric cloud's fit, whose depth
+# maps are rough (at 64x96 on the CPU: quartiles 0.7 / 2.0 / 6-9
+# voxels, 67-69% within the band, 73-74% seen, at 64^3 to 192^3)
+P10_SURFACE_VOXELS = 4.0
+P10_SURFACE_SHARE = 0.5
+P10_MIN_SEEN = 0.1
+P10_TIMED_FRAMES = 12  # RGB round trips timed per model, after one in each mode
+P10_STEPS = 20  # train CLI steps with the viewer on
+P10_REQUEST_AT = 10  # the client connects once this iteration is served
 
 
 def log(phase: str, **kv) -> None:
@@ -1494,6 +1531,426 @@ def phase9_evaluate(state, dev, detail):
     return launches
 
 
+def read_mesh_ply(path):
+    """-> (vertices [V,3] f32, colours [V,3] u8, faces [F,3] i32) of a
+    save_mesh_ply file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    head, body = data.split(b"end_header\n", 1)
+    lines = head.decode().splitlines()
+    count = lambda e: int(next(l for l in lines if l.startswith(f"element {e}")).split()[-1])
+    v = np.frombuffer(body, np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3)]), count("vertex"))
+    f = np.frombuffer(body[v.nbytes:], np.dtype([("n", "u1"), ("idx", "<i4", 3)]), count("face"))
+    if (f["n"] != 3).any() or len(body) != v.nbytes + f.nbytes:
+        raise AssertionError(f"{path}: not a triangle mesh of the counts in its header")
+    return v["xyz"], v["rgb"], f["idx"]
+
+
+def surface_distance(mesh, ex, spacing):
+    """The geometric check of a fused mesh: for each vertex, over the views
+    that see it (its normal, summed from its faces, faces the camera; it
+    projects inside the frame where alpha > 0.5), the least |camera depth -
+    rendered surf_depth at its pixel|, in voxels. -> (its quartiles over the
+    seen vertices, the share of them within P10_SURFACE_VOXELS, the share of
+    vertices seen)."""
+    import torch
+
+    dev = ex.depthmaps[0].device
+    v = torch.as_tensor(mesh.vertices, device=dev).double()
+    f = torch.as_tensor(mesh.faces, device=dev).long()
+    fn = torch.linalg.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]], dim=-1)
+    vn = torch.zeros_like(v).index_add_(0, f.reshape(-1), fn.repeat_interleave(3, dim=0))
+    best = torch.full((len(v),), math.inf, dtype=torch.float64, device=dev)
+    for cam, depth, alpha in zip(ex.cameras, ex.depthmaps, ex.alphamaps):
+        wv, K = cam.world_view.double(), cam.K.double()
+        pc = v @ wv[:3, :3].T + wv[:3, 3]
+        z = pc[:, 2]
+        u = torch.round(K[0, 0] * pc[:, 0] / z + K[0, 2])
+        w = torch.round(K[1, 1] * pc[:, 1] / z + K[1, 2])
+        facing = ((cam.camera_center.double() - v) * vn).sum(-1) > 0
+        inside = facing & (z > 1e-6) & (u >= 0) & (u < cam.width) & (w >= 0) & (w < cam.height)
+        ui, wi = u.clamp(0, cam.width - 1).long(), w.clamp(0, cam.height - 1).long()
+        d = depth[wi, ui].double()
+        seen = inside & (alpha[wi, ui] > 0.5) & (d > 0)
+        best = torch.minimum(best, torch.where(seen, (z - d).abs(), math.inf))
+    seen = torch.isfinite(best)
+    gap = best[seen] / spacing
+    if gap.numel() == 0:
+        return [math.inf] * 3, 0.0, 0.0
+    quartiles = [float(gap.quantile(q)) for q in (0.25, 0.5, 0.75)]
+    return (quartiles, float((gap < P10_SURFACE_VOXELS).double().mean()),
+            float(seen.double().mean()))
+
+
+def phase10_mesh_and_viewer(state, dev, detail):
+    """Slice 8: extract_mesh, view.py, the train CLI's viewer and
+    test_rasterizer, each `main` called in this process on the card with
+    the kernel launch counts set to 0 just before it and read just after.
+    10a extracts phase 8's trained model at P10_MESH_RES over the bench
+    cloud's cube (and 9g's full-orbit rig at the default bounds), and holds
+    the card's grid against the CPU's on the card's maps; 10b serves phase
+    8's model and the bench cloud (9a's model) to a loopback client in every
+    mode; 10c trains P10_STEPS steps of phase 8's scene with the viewer on
+    and a client asking for a frame mid-run; 10d renders the stage scene
+    headless. -> {step: tile_blend_forward launches}."""
+    import io
+    import socket
+    import struct
+    import threading
+
+    import torch
+
+    from tpu_splat_torch import renderer
+    from tpu_splat_torch.eval import mesh as tmesh
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.raster.config import RasterConfig
+    from tpu_splat_torch.renderer import render_fast
+    from tpu_splat_torch.scripts import extract_mesh, test_rasterizer, view
+    from tpu_splat_torch.scripts.render import load_iteration
+    from tpu_splat_torch.data.synthetic import orbit_camera
+    from tpu_splat_torch.viewer import network_gui
+
+    scene_dir, model_dir = os.path.join(P8_DIR, "scene"), os.path.join(P8_DIR, "model")
+    bench_dir, orbit_model = os.path.join(P8_DIR, "bench"), os.path.join(P8_DIR, "orbit")
+    sync = torch.cuda.synchronize
+    launches, out = {}, {}
+
+    def clock(store, key, fn):
+        """fn wrapped: each call synchronised and timed (seconds) into
+        store[key], a list."""
+        def call(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            sync()
+            store.setdefault(key, []).append(time.perf_counter() - t0)
+            return r
+        return call
+
+    # 10a. extract_mesh
+    def run_extract(label, argv):
+        rec, real = {}, (tmesh.GaussianExtractor, tmesh.tsdf_fusion, tmesh.marching_tetrahedra)
+
+        class Recording(real[0]):
+            def reconstruction(self, cameras):
+                rec["extractor"] = self
+                return clock(rec, "render", super().reconstruction)(cameras)
+
+        def fuse(*a, **k):
+            rec["grid"] = clock(rec, "fusion", real[1])(*a, **k)
+            return rec["grid"]
+
+        def march(*a, **k):
+            rec["mesh"] = clock(rec, "marching", real[2])(*a, **k)
+            return rec["mesh"]
+
+        tmesh.GaussianExtractor, tmesh.tsdf_fusion, tmesh.marching_tetrahedra = Recording, fuse, march
+        try:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            extract_mesh.main(argv, device=str(dev))
+            sync()
+            total = time.perf_counter() - t0
+            launches[label] = LAUNCHES.get("tile_blend_forward", 0)
+        finally:
+            tmesh.GaussianExtractor, tmesh.tsdf_fusion, tmesh.marching_tetrahedra = real
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ex, (tsdf, _, weight, origin, spacing), mesh = rec["extractor"], rec["grid"], rec["mesh"]
+        n_views = len(ex.cameras)
+        inst = [int(n) for n in ex.num_instances]
+        model = argv[argv.index("-m") + 1]
+        verts, _, faces = read_mesh_ply(os.path.join(model, "mesh", "fuse.ply"))
+        quartiles, within, seen = surface_distance(mesh, ex, spacing)
+        res = dict(views=n_views, launches=launches[label], instances=inst,
+                   max_instances=ex.cfg.max_instances, voxels=int(tsdf.numel()),
+                   observed_voxels=int((weight > 0).sum()), vertices=len(verts),
+                   faces=len(faces), spacing=spacing, origin=origin.tolist(),
+                   render_s=sum(rec["render"]), fusion_s=sum(rec["fusion"]),
+                   marching_s=sum(rec["marching"]), total_s=total, peak_mem_gib=peak,
+                   surface_gap_quartiles_voxels=quartiles, within_band_share=within,
+                   seen_share=seen)
+        if (launches[label] != n_views or max(inst) >= ex.cfg.max_instances
+                or not np.array_equal(verts, mesh.vertices) or not np.array_equal(faces, mesh.faces)
+                or len(faces) == 0 or not np.isfinite(verts).all()):
+            raise AssertionError(f"{label}: {res}")
+        if not (within >= P10_SURFACE_SHARE and seen >= P10_MIN_SEEN):
+            raise AssertionError(f"{label}: {within:.3f} of the seen vertices within "
+                                 f"{P10_SURFACE_VOXELS} voxels of the rendered surface, "
+                                 f"{seen:.3f} seen: {res}")
+        log(label, size=f"{H}x{W}", views=n_views, res=argv[argv.index("--mesh_res") + 1],
+            voxels=res["voxels"], observed=res["observed_voxels"], vertices=len(verts),
+            faces=len(faces), render_s=f"{res['render_s']:.2f}", fusion_s=f"{res['fusion_s']:.2f}",
+            marching_s=f"{res['marching_s']:.2f}", total_s=f"{total:.2f}",
+            peak_mem_gib=f"{peak:.2f}",
+            gap_quartiles_voxels=",".join(f"{q:.2f}" for q in quartiles),
+            within_band=f"{within:.3f}", seen_share=f"{seen:.3f}", max_instances_view=max(inst),
+            capacity=ex.cfg.max_instances, launches=launches[label])
+        return res, ex
+
+    out["extract"], ex = run_extract("10a extract_mesh", [
+        "-m", model_dir, "--iteration", str(P8_STOP), "--mesh_res", str(P10_MESH_RES),
+        "--bounds", str(P10_BOUNDS)])
+    # the card's grid against the CPU's, fed the card's maps
+    maps = dict(depths=ex.depthmaps, colors=ex.rgbmaps, alphas=ex.alphamaps,
+                Ks=[c.K for c in ex.cameras], w2cs=[c.world_view for c in ex.cameras],
+                bounds_min=-np.ones(3) * P10_BOUNDS, bounds_max=np.ones(3) * P10_BOUNDS)
+    grids, meshes, secs = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        m = maps if where == "cuda" else {k: [t.cpu() for t in v] if isinstance(v, list) else v
+                                          for k, v in maps.items()}
+        t0 = time.perf_counter()
+        grids[where] = tmesh.tsdf_fusion(**m, resolution=P10_CHECK_RES,
+                                         z_chunk=P10_CHECK_RES if where == "cuda" else 16)
+        meshes[where] = tmesh.marching_tetrahedra(grids[where][0], 0.0, origin=grids[where][3],
+                                                  spacing=grids[where][4])
+        sync()
+        secs[where] = time.perf_counter() - t0
+    tsdf_off = float((grids["cuda"][0].cpu() - grids["cpu"][0]).abs().max())
+    weights_equal = torch.equal(grids["cuda"][2].cpu(), grids["cpu"][2])
+    mesh_equal = all(np.array_equal(a, b) for a, b in zip(meshes["cuda"][:2], meshes["cpu"][:2]))
+    out["card_vs_cpu"] = dict(res=P10_CHECK_RES, tsdf_max_abs=tsdf_off, weights_equal=weights_equal,
+                              mesh_equal=mesh_equal, vertices=len(meshes["cpu"].vertices),
+                              card_s=secs["cuda"], cpu_s=secs["cpu"])
+    if tsdf_off > P10_TSDF_TOL or not weights_equal or not mesh_equal:
+        raise AssertionError(f"10a card vs CPU: {out['card_vs_cpu']}")
+    log("10a card vs cpu", res=P10_CHECK_RES, tsdf_max_abs=f"{tsdf_off:.3g}",
+        weights_equal=weights_equal, mesh_equal=mesh_equal,
+        vertices=len(meshes["cpu"].vertices), card_s=f"{secs['cuda']:.2f}",
+        cpu_s=f"{secs['cpu']:.2f}")
+    del ex, maps, grids, meshes
+    if os.path.isdir(orbit_model):
+        out["extract_orbit"], _ = run_extract("10a extract_mesh orbit", [
+            "-m", orbit_model, "--iteration", str(P8_STOP), "--mesh_res", str(P10_MESH_RES),
+            *P9_BENCH_CAPS])
+
+    # 10b. view.py in a thread on an ephemeral port, a loopback client
+    cam = orbit_camera(H, W, radius=6.0, azimuth=P8_AZIMUTHS[0], elevation=0.3, device=dev)
+
+    def request(sock, mode, keep_alive=True):
+        view_m = cam.world_view.cpu().numpy().T.copy()
+        view_m[:, 1:3] *= -1
+        vp = cam.full_proj.cpu().numpy().T.copy()
+        vp[:, 1] *= -1
+        hdr = json.dumps(dict(resolution_x=W, resolution_y=H, train=False, fov_y=cam.fovy,
+                              fov_x=cam.fovx, z_near=cam.znear, z_far=cam.zfar,
+                              keep_alive=keep_alive, scaling_modifier=1.0,
+                              render_mode=mode)).encode()
+        sock.sendall(struct.pack("<I", len(hdr)) + hdr + view_m.tobytes() + vp.tobytes())
+
+    def recv(sock, n):
+        buf = bytearray()
+        while len(buf) < n:
+            c = sock.recv(min(n - len(buf), 1 << 22))
+            if not c:
+                raise AssertionError("the server closed the connection")
+            buf += c
+        return bytes(buf)
+
+    def reply(sock):
+        frame = np.frombuffer(recv(sock, H * W * 3), np.uint8).reshape(H, W, 3)
+        (n,) = struct.unpack("<I", recv(sock, 4))
+        recv(sock, n)
+        (n,) = struct.unpack("<I", recv(sock, 4))
+        return frame, json.loads(recv(sock, n))
+
+    def modes(sock):
+        (n,) = struct.unpack("<I", recv(sock, 4))
+        return json.loads(recv(sock, n))
+
+    def recording_gui(guis, times):
+        class Recording(network_gui.NetworkGUI):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                guis.append(self)
+
+            def send(self, frame, *a, **k):
+                return clock(times, "send", super().send)(frame, *a, **k)
+        return Recording
+
+    def wait_for(guis, errors, what):
+        for _ in range(2400):
+            if guis or errors:
+                break
+            time.sleep(0.05)
+        if errors or not guis:
+            raise AssertionError(f"{what} did not bind its viewer: {errors}")
+        return guis[0].listener.getsockname()[1]
+
+    def serve_view(label, model, iteration):
+        guis, times, errors, frames, rtt = [], {}, [], {}, []
+        real = (network_gui.NetworkGUI, renderer.render_fast, network_gui.encode_u8,
+                network_gui.render_net_image)
+        network_gui.NetworkGUI = recording_gui(guis, times)
+        renderer.render_fast = clock(times, "render", real[1])
+        network_gui.render_net_image = clock(times, "image", real[3])
+        network_gui.encode_u8 = clock(times, "encode", real[2])
+
+        def run():
+            try:
+                view.main(["-m", model, "--port", "0", "--iteration", str(iteration)],
+                          device=str(dev))
+            except BaseException as e:  # reported by the phase
+                errors.append(repr(e))
+
+        LAUNCHES.clear()
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        try:
+            port = wait_for(guis, errors, label)
+            with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+                announced = modes(s)
+                for i, mode in enumerate(network_gui.RENDER_MODES):
+                    request(s, i)
+                    frames[mode], metrics = reply(s)
+                for _ in range(P10_TIMED_FRAMES):
+                    t0 = time.perf_counter()
+                    request(s, 0)
+                    reply(s)
+                    rtt.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            if guis:
+                guis[0].close()
+            t.join(timeout=120)
+            (network_gui.NetworkGUI, renderer.render_fast, network_gui.encode_u8,
+             network_gui.render_net_image) = real
+        n_frames = len(network_gui.RENDER_MODES) + P10_TIMED_FRAMES
+        launches[label] = LAUNCHES.get("tile_blend_forward", 0)
+        if t.is_alive() or errors or announced != network_gui.RENDER_MODES \
+                or launches[label] != n_frames:
+            raise AssertionError(f"{label}: alive {t.is_alive()}, errors {errors}, "
+                                 f"{launches[label]} launches for {n_frames} frames")
+        # each frame: the handler's render and encoder called directly
+        st, _ = load_iteration(model, iteration, 3, dev)
+        cfg = RasterConfig(**view.VIEW_CAPS)
+        bgd = torch.zeros(3, device=dev)
+        vcam = network_gui.viewer_camera(dict(
+            width=W, height=H, fovx=cam.fovx, fovy=cam.fovy, znear=cam.znear, zfar=cam.zfar,
+            world_view=cam.world_view.cpu().numpy(), full_proj=cam.full_proj.cpu().numpy()), dev)
+        o = render_fast(st, vcam, cfg, bgd, collect_weights=False)
+        apart = [m for m in network_gui.RENDER_MODES if not np.array_equal(
+            frames[m], network_gui.encode_u8(network_gui.render_net_image(o, m)).cpu().numpy())]
+        want = network_gui.encode_u8(render_fast(st, cam, cfg, bgd).render).cpu().numpy()
+        off = np.abs(frames["RGB"].astype(int) - want.astype(int)).max(-1)
+        n_off = int((off > 0).sum())
+        # per timed frame: render_fast, the frame map and the uint8 encoder,
+        # the copy to the host and the socket writes
+        last = {k: np.array(v[-P10_TIMED_FRAMES:]) * 1e3 for k, v in times.items()}
+        split = dict(render=float(np.median(last["render"])),
+                     encode=float(np.median(last["image"] + last["encode"])),
+                     send=float(np.median(last["send"])))
+        # view.py's caps are the JAX view.py's: a frame past 1<<21 instances
+        # drops the farthest there too (recorded, not held)
+        res = dict(frames=n_frames, launches=launches[label], frames_apart_from_direct=apart,
+                   instances=int(o.num_instances), max_instances=cfg.max_instances,
+                   rgb_vs_camera_create_max=int(off.max()), rgb_vs_camera_create_px=n_off,
+                   round_trip_ms=rtt, round_trip_ms_median=float(np.median(rtt)),
+                   split_ms_median=split, metrics=metrics, gaussians=st.num_alive)
+        if apart or off.max() > 1 or n_off > FLIPS_PER_4096 * off.size / 4096:
+            raise AssertionError(f"{label}: {res}")
+        log(label, gaussians=st.num_alive, size=f"{H}x{W}", frames=n_frames,
+            launches=launches[label], round_trip_ms_median=f"{np.median(rtt):.2f}",
+            render_ms=f"{split['render']:.2f}", encode_ms=f"{split['encode']:.2f}",
+            send_ms=f"{split['send']:.2f}", rgb_px_off_camera_create=n_off,
+            instances=int(o.num_instances), capacity=cfg.max_instances)
+        return res
+
+    # (9f's iteration_*_visible directory makes the newest-iteration search
+    # raise, as in the JAX package: the iteration is named)
+    out["view_trained"] = serve_view("10b view trained", model_dir, P8_STOP)
+    out["view_bench"] = serve_view("10b view bench", bench_dir, 1)
+
+    # 10c. the train CLI with its viewer on; a client asks for one frame mid-run
+    guis, times, errors, got, served = [], {}, [], {}, []
+    go = threading.Event()
+    real = (network_gui.NetworkGUI, network_gui.service_viewer)
+
+    def service(gui, st, cfg, bg, source, metrics, isp=None):
+        if metrics["it"] == P10_REQUEST_AT:
+            go.set()
+        n0 = LAUNCHES.get("tile_blend_forward", 0)
+        sync()
+        t0 = time.perf_counter()
+        ok = real[1](gui, st, cfg, bg, source, metrics, isp=isp)
+        sync()
+        served.append(dict(iteration=metrics["it"], frame=ok, ms=(time.perf_counter() - t0) * 1e3,
+                           launches=LAUNCHES.get("tile_blend_forward", 0) - n0))
+        return ok
+
+    def client():
+        try:
+            if not go.wait(600):
+                raise AssertionError(f"iteration {P10_REQUEST_AT} was not reached")
+            port = guis[0].listener.getsockname()[1]
+            with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+                modes(s)
+                t0 = time.perf_counter()
+                request(s, 0, keep_alive=False)
+                got["frame"], got["metrics"] = reply(s)
+                got["round_trip_ms"] = (time.perf_counter() - t0) * 1e3
+                got["closed"] = s.recv(1) == b""
+        except BaseException as e:  # reported by the phase
+            errors.append(repr(e))
+
+    network_gui.NetworkGUI, network_gui.service_viewer = recording_gui(guis, times), service
+    argv = ["-s", scene_dir, "-m", os.path.join(P8_DIR, "viewer_run"),
+            *[a for a in P8_ARGS if a != "--disable_viewer"], "--port", "0"]
+    ct = threading.Thread(target=client, daemon=True)
+    ct.start()
+    LAUNCHES.clear()
+    try:
+        ts, rec = run_train_cli(argv, P10_STEPS, str(dev))
+    finally:
+        go.set()
+        network_gui.NetworkGUI, network_gui.service_viewer = real
+        ct.join(timeout=300)
+    launches["10c train viewer"] = LAUNCHES.get("tile_blend_forward", 0)
+    frames = [r for r in served if r["frame"]]
+    quiet = [r["ms"] for r in served if not r["frame"]]
+    after = {r["iteration"] for r in frames}
+    step_ms = {r["iteration"]: r["ms"] for r in rec["steps"]}
+    quiet_steps = [ms for it, ms in step_ms.items() if it > P8_WARMUP and it not in after
+                   and it - 1 not in after]
+    res = dict(steps=len(rec["steps"]), step=ts.step, served=frames, errors=errors,
+               quiet_service_ms_median=float(np.median(quiet)) if quiet else None,
+               quiet_step_ms_median=float(np.median(quiet_steps)),
+               request_steps_ms={it: step_ms.get(it + 1) for it in after},
+               client_round_trip_ms=got.get("round_trip_ms"), metrics=got.get("metrics"))
+    if (errors or ts.step != P10_STEPS or len(frames) != 1 or frames[0]["launches"] != 1
+            or got.get("frame") is None or not got["frame"].any() or not got.get("closed")
+            or not guis or not guis[0].closed):
+        raise AssertionError(f"10c: {res}")
+    log("10c train viewer", steps=ts.step, frame_at_iteration=frames[0]["iteration"],
+        frame_service_ms=f"{frames[0]['ms']:.2f}",
+        quiet_service_ms=f"{res['quiet_service_ms_median']:.4f}",
+        client_round_trip_ms=f"{got['round_trip_ms']:.2f}",
+        quiet_step_ms_median=f"{res['quiet_step_ms_median']:.2f}",
+        step_after_request_ms=",".join(f"{v:.2f}" for v in res["request_steps_ms"].values()
+                                       if v is not None),
+        launches=launches["10c train viewer"])
+    out["train_viewer"] = res
+    del ts, rec
+
+    # 10d. test_rasterizer --headless
+    LAUNCHES.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        test_rasterizer.main(["--headless"], device=str(dev))
+    launches["10d test_rasterizer"] = LAUNCHES.get("tile_blend_forward", 0)
+    line = buf.getvalue().strip().splitlines()[-1]
+    coverage = float(line.split("coverage ")[1].split(",")[0])
+    if not (line.startswith("stage render: (128, 128, 3)") and line.endswith("nan=False")
+            and coverage > 0.0 and launches["10d test_rasterizer"] == 1):
+        raise AssertionError(f"10d: {line!r}, {launches['10d test_rasterizer']} launches")
+    out["test_rasterizer"] = dict(line=line, coverage=coverage)
+    log("10d test_rasterizer", coverage=f"{coverage:.3f}", nan=False,
+        launches=launches["10d test_rasterizer"])
+    out["launches"] = launches
+    detail["mesh_viewer"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2239,11 +2696,13 @@ def main() -> int:
     del out_t
 
     # 8. train from a COLMAP scene on disk through the train CLI; 9. evaluate
-    # the bench cloud and the trained model through the evaluation CLIs.
-    # Their files (~2 GB) are removed after.
+    # the bench cloud and the trained model through the evaluation CLIs; 10.
+    # extract a mesh and serve the viewer. Their files (~2 GB) are removed
+    # after.
     try:
         phase8_train_from_disk(state, dev, detail)
         eval_launches = phase9_evaluate(state, dev, detail)
+        mesh_launches = phase10_mesh_and_viewer(state, dev, detail)
     finally:
         shutil.rmtree(P8_DIR, ignore_errors=True)
     del state
@@ -2293,7 +2752,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     log("done", seconds=f"{detail['seconds']:.1f}")
-    print(json.dumps({"phase9_launches": {"tile_blend_forward": eval_launches}}))
+    print(json.dumps({"phase9_launches": {"tile_blend_forward": eval_launches},
+                      "phase10_launches": {"tile_blend_forward": mesh_launches}}))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

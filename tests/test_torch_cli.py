@@ -103,10 +103,68 @@ def test_cli_resumes_from_checkpoint(run, tmp_path):
 
 
 def test_cli_tight_culling_and_no_viewer(run, tmp_path, capsys):
-    ts = _run(run["src"], str(tmp_path / "m"), "--iterations_override", "3",
-              "--test_iterations", "3", "--tight_culling")
+    """Without --disable_viewer the CLI binds the viewer; where the port is
+    taken it says so in one line and trains on, as the JAX CLI."""
+    import socket
+
+    busy = socket.socket()
+    busy.bind(("127.0.0.1", 0))
+    busy.listen()
+    port = busy.getsockname()[1]
+    try:
+        ts = _run(run["src"], str(tmp_path / "m"), "--iterations_override", "3",
+                  "--test_iterations", "3", "--tight_culling", "--port", str(port))
+    finally:
+        busy.close()
     assert ts.step == 3
-    assert "viewer disabled: the network viewer is not ported" in capsys.readouterr().out
+    assert f"viewer disabled (cannot bind 127.0.0.1:{port}" in capsys.readouterr().out
+
+
+def test_cli_serves_the_viewer_while_training(run, tmp_path, monkeypatch):
+    """A client connects while the CLI trains: one request is answered
+    between two steps (an RGB frame through the ISP's controller, the
+    iteration in its metrics), the connection closes after it (no
+    keep_alive), and training runs on to its last step."""
+    import socket
+    import threading
+
+    from tests.test_torch_viewer import read_modes, read_reply, request
+    from tpu_splat_torch.data.synthetic import orbit_camera
+    from tpu_splat_torch.viewer import network_gui
+
+    guis, got = [], {}
+
+    class Recording(network_gui.NetworkGUI):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            guis.append(self)
+
+    monkeypatch.setattr(network_gui, "NetworkGUI", Recording)
+
+    def client():
+        for _ in range(1200):
+            if guis:
+                break
+            threading.Event().wait(0.05)
+        cam = orbit_camera(24, 40, radius=4.0, device="cpu")
+        s = socket.create_connection(("127.0.0.1", guis[0].listener.getsockname()[1]),
+                                     timeout=120)
+        got["modes"] = read_modes(s)
+        request(s, 40, 24, 0, cam.world_view, cam.full_proj, cam.fovx, cam.fovy,
+                keep_alive=False)
+        got["reply"] = read_reply(s, 40, 24)
+        got["closed"] = s.recv(1) == b""
+        s.close()
+
+    t = threading.Thread(target=client)
+    t.start()
+    ts = _run(run["src"], str(tmp_path / "m"), "--iterations_override", "6",
+              "--test_iterations", "6", "--port", "0")
+    t.join(timeout=120)
+    assert not t.is_alive() and ts.step == 6 and guis[0].closed
+    frame, path, metrics = got["reply"]
+    assert frame.shape == (24, 40, 3) and frame.dtype == np.uint8 and frame.any()
+    assert path == run["src"] and 1 <= metrics["it"] <= 6 and got["closed"]
 
 
 @pytest.mark.parametrize("mesh", ["tiles", "dp"])

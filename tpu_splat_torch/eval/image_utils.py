@@ -5,7 +5,8 @@ Per-pixel metric maps (psnr_map, Sobel gradient_map), channel normalizers
 (to_3ch), grid tiling for qualitative sheets (make_grid — role of
 torchvision.utils.make_grid in view_diff_maps.py:118), and the cubemap
 cross-layout plot (plot_cubemap, reference utils/image_utils.py:86-100).
-All numpy, channels-last [H, W, C] in [0, 1]. PNGs are written by the
+All numpy (gradient_map also on tensors), channels-last [H, W, C] in
+[0, 1]. PNGs are written by the
 port's numpy + zlib writer (`data/native_loader.write_png`), so no Pillow
 is needed; the pixels are the JAX package's, the file bytes may differ.
 """
@@ -37,9 +38,31 @@ def normalized_psnr_map(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return p / max(p.max(), 1e-8)
 
 
-def gradient_map(img: np.ndarray) -> np.ndarray:
+def gradient_map(img):
     """Sobel edge magnitude (reference utils/image_utils.py:33-48),
-    [H,W,C] -> [H,W,1] in [0,1]."""
+    [H,W,C] -> [H,W,1] in [0,1]. A tensor is mapped on its device with
+    numpy's float32 steps in numpy's order (the channel mean summed left
+    to right, each tap a product then a sum, the square root correctly
+    rounded), so it gives numpy's bits."""
+    import torch
+
+    from tpu_splat_torch.core import f32
+
+    if isinstance(img, torch.Tensor):
+        gray = img[..., 0]
+        for c in range(1, img.shape[-1]):
+            gray = gray + img[..., c]
+        gray = gray / gray.new_full((), img.shape[-1])  # a true divide on the card too
+        pad = torch.nn.functional.pad(gray[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+        gx, gy = torch.zeros_like(gray), torch.zeros_like(gray)
+        kx = [[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]
+        for i in range(3):
+            for j in range(3):
+                sl = pad[i : i + gray.shape[0], j : j + gray.shape[1]]
+                gx = gx + kx[i][j] * sl
+                gy = gy + kx[j][i] * sl
+        mag = f32.sqrt(gx**2 + gy**2)
+        return (mag / torch.clamp(mag.max(), min=1e-8))[..., None]
     gray = np.mean(img, axis=-1)
     kx = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32)
     ky = kx.T

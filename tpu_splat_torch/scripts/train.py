@@ -7,8 +7,9 @@ The reference's schedule: two-stage deferred reflection, the densification
 window, normal propagation, colour sabotage, opacity-LR pulsing, env-map
 doubling, the xyz freeze, the learned ISP with the late scene freeze, plus
 capacity growth, checkpoints, PLY snapshots and cfg_args, all in files the
-JAX package reads. One device: `--mesh tiles|dp` is not ported, and there
-is no viewer.
+JAX package reads, and the network viewer (one request served an
+iteration unless --disable_viewer). One device: `--mesh tiles|dp` is not
+ported.
 """
 from __future__ import annotations
 
@@ -129,9 +130,14 @@ def training(args, argv_namespace=None, device: str = "cuda"):
 
     step_fn = build_step(cfg)
     reporter = TrainReporter(model.model_path, enable_tb=not args.quiet)
+    gui = None
     if not args.disable_viewer:
-        print("viewer disabled: the network viewer is not ported (ROADMAP.md, Queue A "
-              "item 5); training without it")
+        from tpu_splat_torch.viewer import network_gui
+
+        try:
+            gui = network_gui.NetworkGUI(args.ip, args.port)
+        except OSError as e:
+            print(f"viewer disabled (cannot bind {args.ip}:{args.port}: {e})")
     eval_cfg = RasterConfig(
         max_tiles_per_gaussian=args.max_tiles_per_gaussian,
         max_instances=args.max_instances,
@@ -146,105 +152,112 @@ def training(args, argv_namespace=None, device: str = "cuda"):
     log = EventLog()
     t_start = time.time()
 
-    for iteration in range(first_iter + 1, opt.iterations + 1):
-        frozen = is_scene_frozen(iteration, opt, model.post_process)
-        if not order:
-            order = list(range(len(cams)))
-            rng.shuffle(order)
-        vind = order.pop()
-        cam = cams[vind]
-        gt = cam.image.to(dev)
-        alpha = cam.alpha.to(dev) if cam.alpha is not None else None
-        ts, aux = step_fn(ts, cam.camera, gt, bg, gt_alpha=alpha, frozen=frozen,
-                          frame_idx=vind)
+    try:
+        for iteration in range(first_iter + 1, opt.iterations + 1):
+            frozen = is_scene_frozen(iteration, opt, model.post_process)
+            if not order:
+                order = list(range(len(cams)))
+                rng.shuffle(order)
+            vind = order.pop()
+            cam = cams[vind]
+            gt = cam.image.to(dev)
+            alpha = cam.alpha.to(dev) if cam.alpha is not None else None
+            ts, aux = step_fn(ts, cam.camera, gt, bg, gt_alpha=alpha, frozen=frozen,
+                              frame_idx=vind)
 
-        # a device-side EMA: the host reads the loss only when it prints
-        ema_loss = 0.4 * aux.loss + 0.6 * ema_loss
-        if iteration % 100 == 0 or iteration == 1:
-            loss_now = float(aux.loss)
-            if not math.isfinite(loss_now):
-                # reference-style failure snapshot (diff_surfel_rasterization/
-                # __init__.py:91-98): dump every rasterizer input once, then
-                # stop, so the failure reproduces offline
-                p = dump_snapshot(
-                    model.model_path, ts.gaussians, cam.camera, gt, iteration,
-                    f"non-finite loss {loss_now} at iteration {iteration}",
-                    cfg=cfg, bg=bg,
+            # a device-side EMA: the host reads the loss only when it prints
+            ema_loss = 0.4 * aux.loss + 0.6 * ema_loss
+            if iteration % 100 == 0 or iteration == 1:
+                loss_now = float(aux.loss)
+                if not math.isfinite(loss_now):
+                    # reference-style failure snapshot (diff_surfel_rasterization/
+                    # __init__.py:91-98): dump every rasterizer input once, then
+                    # stop, so the failure reproduces offline
+                    p = dump_snapshot(
+                        model.model_path, ts.gaussians, cam.camera, gt, iteration,
+                        f"non-finite loss {loss_now} at iteration {iteration}",
+                        cfg=cfg, bg=bg,
+                    )
+                    raise RuntimeError(
+                        f"non-finite loss at iteration {iteration}; "
+                        f"rasterizer inputs dumped to {p or 'existing snapshot_fw.npz'}"
+                    )
+                print(
+                    f"[{iteration}] loss {float(ema_loss):.5f} psnr {float(aux.psnr):.2f} "
+                    f"pts {int(aux.n_alive)} inst {int(aux.num_instances)} "
+                    f"maxtile {int(aux.max_tile_count)} "
+                    f"({(time.time()-t_start):.0f}s)"
                 )
-                raise RuntimeError(
-                    f"non-finite loss at iteration {iteration}; "
-                    f"rasterizer inputs dumped to {p or 'existing snapshot_fw.npz'}"
-                )
-            print(
-                f"[{iteration}] loss {float(ema_loss):.5f} psnr {float(aux.psnr):.2f} "
-                f"pts {int(aux.n_alive)} inst {int(aux.num_instances)} "
-                f"maxtile {int(aux.max_tile_count)} "
-                f"({(time.time()-t_start):.0f}s)"
-            )
-        prev_overflow = log.overflowed
-        ts = run_scheduled_events(
-            ts,
-            iteration,
-            opt,
-            cameras_extent=scene.cameras_extent,
-            cameras_mean=scene.cameras_mean,
-            scene_frozen=frozen,
-            log=log,
-        )
-
-        # geometric capacity growth (role of the reference's resize
-        # callback, rasterize_points.cu:31-37): after a densify overflow
-        # and every 100 steps, grow whatever is (nearly) full and rebuild
-        # the step
-        if log.overflowed != prev_overflow or iteration % 100 == 0:
-            dec = check_growth(
+            prev_overflow = log.overflowed
+            ts = run_scheduled_events(
                 ts,
-                cfg,
-                n_alive=int(aux.n_alive),
-                num_instances=int(aux.num_instances),
-                densify_overflow=log.overflowed - prev_overflow,
-                pad_overflow=int(aux.pad_overflow),
-            )
-            if dec.grew:
-                ts, cfg = dec.ts, dec.cfg
-                print(f"[{iteration}] GROW: " + "; ".join(dec.reasons))
-                step_fn = build_step(cfg)
-            elif int(aux.num_instances) >= cfg.max_instances:
-                # the forward dropped instances this step and growth did not
-                # trigger: keep a one-shot snapshot for an offline repro
-                p = dump_snapshot(
-                    model.model_path, ts.gaussians, cam.camera, gt, iteration,
-                    f"instance overflow {int(aux.num_instances)} >= "
-                    f"{cfg.max_instances} at iteration {iteration}",
-                    cfg=cfg, bg=bg,
-                )
-                if p:
-                    print(f"[{iteration}] OVERFLOW snapshot -> {p}")
-
-        if iteration % 100 == 0:
-            reporter.scalars(
                 iteration,
-                {
-                    "train_loss_patches/total_loss": float(aux.loss),
-                    "train_loss_patches/l1_loss": float(aux.l1),
-                    "train_loss_patches/normal_loss": float(aux.normal_loss),
-                    "total_points": int(aux.n_alive),
-                },
+                opt,
+                cameras_extent=scene.cameras_extent,
+                cameras_mean=scene.cameras_mean,
+                scene_frozen=frozen,
+                log=log,
             )
-        if iteration in args.test_iterations:
-            reporter.evaluate(
-                iteration, ts.gaussians, eval_cfg, bg_list,
-                scene.test_cameras, scene.train_cameras,
-            )
-            reporter.model_stats(iteration, ts.gaussians)
-        if iteration in args.save_iterations:
-            print(f"[ITER {iteration}] Saving Gaussians")
-            scene.save(ts.gaussians, iteration)
-        if iteration in args.checkpoint_iterations:
-            print(f"[ITER {iteration}] Saving Checkpoint")
-            save_checkpoint(
-                os.path.join(model.model_path, f"chkpnt{iteration}.npz"), ts, iteration
-            )
+
+            # geometric capacity growth (role of the reference's resize
+            # callback, rasterize_points.cu:31-37): after a densify overflow
+            # and every 100 steps, grow whatever is (nearly) full and rebuild
+            # the step
+            if log.overflowed != prev_overflow or iteration % 100 == 0:
+                dec = check_growth(
+                    ts,
+                    cfg,
+                    n_alive=int(aux.n_alive),
+                    num_instances=int(aux.num_instances),
+                    densify_overflow=log.overflowed - prev_overflow,
+                    pad_overflow=int(aux.pad_overflow),
+                )
+                if dec.grew:
+                    ts, cfg = dec.ts, dec.cfg
+                    print(f"[{iteration}] GROW: " + "; ".join(dec.reasons))
+                    step_fn = build_step(cfg)
+                elif int(aux.num_instances) >= cfg.max_instances:
+                    # the forward dropped instances this step and growth did not
+                    # trigger: keep a one-shot snapshot for an offline repro
+                    p = dump_snapshot(
+                        model.model_path, ts.gaussians, cam.camera, gt, iteration,
+                        f"instance overflow {int(aux.num_instances)} >= "
+                        f"{cfg.max_instances} at iteration {iteration}",
+                        cfg=cfg, bg=bg,
+                    )
+                    if p:
+                        print(f"[{iteration}] OVERFLOW snapshot -> {p}")
+
+            if iteration % 100 == 0:
+                reporter.scalars(
+                    iteration,
+                    {
+                        "train_loss_patches/total_loss": float(aux.loss),
+                        "train_loss_patches/l1_loss": float(aux.l1),
+                        "train_loss_patches/normal_loss": float(aux.normal_loss),
+                        "total_points": int(aux.n_alive),
+                    },
+                )
+            if iteration in args.test_iterations:
+                reporter.evaluate(
+                    iteration, ts.gaussians, eval_cfg, bg_list,
+                    scene.test_cameras, scene.train_cameras,
+                )
+                reporter.model_stats(iteration, ts.gaussians)
+            if gui is not None:
+                network_gui.service_viewer(gui, ts.gaussians, eval_cfg, bg, model.source_path,
+                                           {"it": iteration}, isp=ts.isp)
+            if iteration in args.save_iterations:
+                print(f"[ITER {iteration}] Saving Gaussians")
+                scene.save(ts.gaussians, iteration)
+            if iteration in args.checkpoint_iterations:
+                print(f"[ITER {iteration}] Saving Checkpoint")
+                save_checkpoint(
+                    os.path.join(model.model_path, f"chkpnt{iteration}.npz"), ts, iteration
+                )
+    finally:
+        if gui is not None:
+            gui.close()
 
     reporter.close()
     scene.save(ts.gaussians, opt.iterations)
