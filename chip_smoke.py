@@ -53,10 +53,29 @@ frame the handler's render and encoder called directly, RGB that of
 `Camera.create` at the same pose and fov, one forward launch a frame, the
 round trip timed and split); the train CLI with its viewer on for 20
 steps, a client asking for a frame mid-run; `test_rasterizer --headless`.
+Phase 11 drives the modes off the main path on the bench cloud at 1088x1920:
+11a the volumetric (3DGS EWA) frame through the tile kernels, antialiasing
+off and on, max_instances sized from its first call when it would drop
+instances: the forward kernel against its plain version on sampled tiles
+in every variant, its (instance, warp) pair iterations with and without
+the cull beside the surfel frame's (`kernel_ab.py`'s profile builds) and
+the no-cull build bit for bit, one fwd+bwd of an L2 loss in means, scales,
+rotations, opacity and SH (the backward kernel and segment sums against
+their plain versions; the timed run's launches counted from 0), the stage
+split, and the volumetric preprocess of 100k Gaussians on the card against
+the CPU bit for bit; 11b the scan blend (backend="xla"): tile_depth grown
+by `check_growth` from the first frame's max_tile_count, a served frame;
+held against the tile-kernel path: the frame (pixels off tolerance only
+where n_contrib flipped or a branch point lies within reach in float64),
+the two blends' gradients under one cotangent (every row), and one
+training step (rows beyond tolerance no more, and by no more, than a
+jitter of the kernel path's own blend outputs moves); 11c the
+bench view's binning under expand_mode="scan" against "gather", every
+field; 11d the brute-force oracle at 48x48 against the kernel frame.
 Each phase prints one line a step; every failed check raises,
 so the exit code is not 0. Details go to
 chiprun_out/chip_smoke.json. The last four lines are phases 9 and 10's
-forward launches by step, the kernels' JSON record (launches over the 4 timed
+forward launches by step and phase 11's volumetric fwd+bwd launches, the kernels' JSON record (launches over the 4 timed
 tight training steps), the card's name and power limit as nvidia-smi
 reports them, and the result line.
 
@@ -220,6 +239,24 @@ P10_TIMED_FRAMES = 12  # RGB round trips timed per model, after one in each mode
 P10_STEPS = 20  # train CLI steps with the viewer on
 P10_REQUEST_AT = 10  # the client connects once this iteration is served
 
+# the modes off the main path (slice 9): the volumetric (3DGS EWA) frame and
+# gradient through the tile kernels, the scan blend (backend="xla") with
+# check_growth's tile_depth rule, expand_mode="scan", the brute-force oracle
+P11_FWD_VARIANTS = ("fwd:no_cull", "fwd:profile", "fwd:profile_no_cull")  # kernel_ab.py builds
+P11_HEADROOM = 1.25  # max_instances for a volumetric frame that would truncate: x its count
+P11_IMG_TOL = dict(color=(2e-5, 1e-4), final_T=(2e-5, 1e-4), refl_map=(2e-5, 1e-4),
+                   others=(5e-5, 1e-3))  # (abs, rel): tests/test_pallas.py:37-48
+P11_GRAD_TOL = 1e-3  # of each input's or leaf's max: the blends' VJPs; the steps (see 11b)
+# 11b's frame: a pixel off tolerance without an n_contrib flip must lie
+# within this of a branch point of the blend in float64 (knife_margins)
+KNIFE_BAND = 1e-5
+P11_FLIP_SHARE = 2.0 / 255.0  # one accept flip at alpha = 1/255: its own weight, and T behind it
+# 11b's steps: the kernel step with its blend outputs jittered by this,
+# relative (tests/scan_grad_witness.py): the rows float32-size noise moves
+P11_JITTER = 2.0**-18
+P11_BF_N, P11_BF_HW = 120, 48  # 11d: the brute-force oracle's scene
+P11_SCAN_FIRST_DEPTH = 512  # 11b's first frame, before check_growth sizes tile_depth
+
 
 def log(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
@@ -346,8 +383,17 @@ def captured_kernel_inputs(state, cam, cfg, bg):
     """Serve one frame with `tile_blend_forward` wrapped to keep its
     arguments: the tile kernel's inputs exactly as the served path builds
     them. Returns (feats, (starts, counts, org_x, org_y))."""
-    from tpu_splat_torch.kernels import tile_blend as tb
     from tpu_splat_torch.renderer import render_fast
+
+    return captured_forward(lambda: render_fast(state, cam, cfg, bg, collect_weights=False))
+
+
+def captured_forward(frame):
+    """Run `frame()` without autograd, with `tile_blend_forward` wrapped to
+    keep its arguments. Returns (feats, (starts, counts, org_x, org_y))."""
+    import torch
+
+    from tpu_splat_torch.kernels import tile_blend as tb
 
     seen = []
     kernel = tb.tile_blend_forward
@@ -358,7 +404,8 @@ def captured_kernel_inputs(state, cam, cfg, bg):
 
     tb.tile_blend_forward = keep
     try:
-        render_fast(state, cam, cfg, bg, collect_weights=False)
+        with torch.no_grad():
+            frame()
     finally:
         tb.tile_blend_forward = kernel
     (args,) = seen
@@ -1951,6 +1998,635 @@ def phase10_mesh_and_viewer(state, dev, detail):
     return launches
 
 
+def volumetric_leaves(state):
+    """The bench cloud as volumetric Gaussians, as gradient leaves: three
+    scale axes (the two surfel scales and the first again, as
+    tests/test_raster.py:202 does), the rotations, the activated opacity and
+    the SH; and each surfel's normal (its rotation's third column)."""
+    import torch
+
+    from tpu_splat_torch.core.transforms import quat_to_rotmat
+
+    with torch.no_grad():
+        sc = state.get_scaling()
+        leaves = dict(xyz=state.xyz, scales3=torch.cat([sc, sc[:, :1]], 1),
+                      rotation=state.rotation, opacity=state.get_opacity(),
+                      sh=state.get_features())
+        normals = quat_to_rotmat(state.rotation)[:, :, 2]
+    return {k: v.detach().clone().requires_grad_() for k, v in leaves.items()}, normals
+
+
+def volumetric_frame(state, leaves, normals, cam, cfg, bg, aa, collect_weights=True):
+    from tpu_splat_torch.raster import rasterize
+
+    return rasterize(leaves["xyz"], leaves["scales3"], leaves["rotation"], leaves["opacity"],
+                     state.get_refl().detach(), cam, bg, cfg, sh=leaves["sh"],
+                     sh_degree=state.max_sh_degree, alive=state.alive, mode="volumetric",
+                     normals=normals, antialiasing=aa, collect_weights=collect_weights)
+
+
+def hold_images(got, want, label, near_knife=None):
+    """A frame's maps against another's at P11_IMG_TOL, as compare() holds
+    the kernel: the errors are taken over the pixels whose n_contrib did
+    not flip; flipped pixels are counted. A pixel off tolerance whose
+    n_contrib did not flip passes only where `near_knife` ([H, W] bool, from
+    knife_margins) says some (instance, pixel) pair there lies within
+    KNIFE_BAND of a branch point in float64: an accept or a median-rank
+    flip. There every channel bounded by 1 (colour, T, reflection, alpha,
+    normal, scope) stays within one flipped splat's share, P11_FLIP_SHARE;
+    the depth channels (depth, median depth, distortion) may jump, and are
+    reported. Flipped and knife pixels share the budget FLIPS_PER_4096."""
+    import torch
+
+    flip = got.n_contrib != want.n_contrib
+    npx = flip.numel()
+    off = torch.zeros_like(flip)
+    diffs = {}
+    for f, (atol, rtol) in P11_IMG_TOL.items():
+        a, b = getattr(got, f).detach(), getattr(want, f).detach()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: non-finite {f}")
+        d = (a - b).abs()
+        over = d > atol + rtol * b.abs()
+        off |= over.any(-1) if over.dim() == 3 else over
+        diffs[f] = d if d.dim() == 3 else d[..., None]
+    knife = off & ~flip
+    stray = knife if near_knife is None else knife & ~near_knife
+    keep = ~flip & ~knife
+    bounded = torch.cat([diffs["color"], diffs["final_T"], diffs["refl_map"],
+                         diffs["others"][..., [1, 2, 3, 4, 7]]], -1)[knife]
+    res = dict(ncon_flips=int(flip.sum()), knife_pixels=int(knife.sum()),
+               stray_pixels=int(stray.sum()), pixels=npx,
+               **{f: float(d.amax(-1)[keep].max()) for f, d in diffs.items()},
+               knife_share=float(bounded.max()) if bounded.numel() else 0.0,
+               knife_depth_jump=float(diffs["others"][..., [0, 5, 6]][knife].max())
+               if bool(knife.any()) else 0.0)
+    if (res["stray_pixels"] or res["knife_share"] > P11_FLIP_SHARE
+            or res["ncon_flips"] + res["knife_pixels"] > FLIPS_PER_4096 * npx / 4096):
+        raise AssertionError(f"{label}: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def blend_inputs(store):
+    """Record in `store` the gradients that reach the blend's inputs (the
+    preprocess outputs hom, xy, normal_view, color, and the opacity): the
+    blend's own backward, before the preprocess VJP."""
+    import tpu_splat_torch.raster as rp
+
+    edge = rp.backward_edge
+    names = ("hom", "xy", "normal_view", "color", "opacity")
+
+    def recording(name, kind, *xs):
+        if name == "preprocess_vjp" and kind == "start":
+            for k, x in zip(names, xs):
+                if x.requires_grad:
+                    x.register_hook(lambda g, k=k: store.__setitem__(k, g.detach()))
+        return edge(name, kind, *xs)
+
+    rp.backward_edge = recording
+    try:
+        yield
+    finally:
+        rp.backward_edge = edge
+
+
+@contextlib.contextmanager
+def jittered_kernel_maps(rel, seed=0):
+    """The kernel path's blend outputs (colour, maps, reflection strength)
+    each multiplied by 1 + u * rel, u uniform in [-1, 1] from `seed`: how
+    far a step's gradients move when the blend's outputs move by rounding
+    noise. A no-op for rel None."""
+    import torch
+
+    import tpu_splat_torch.raster as rp
+
+    kp = rp.blend_kernel_path
+    if rel is None:
+        yield
+        return
+    gen = torch.Generator().manual_seed(9 + seed)
+
+    def jittered(*a, **kw):
+        o = kp(*a, **kw)
+        jit = lambda x: x * (1.0 + rel * (2.0 * torch.rand(x.shape, generator=gen) - 1.0)
+                             .to(x.device))
+        return o._replace(color=jit(o.color), others=jit(o.others), refl_map=jit(o.refl_map))
+
+    rp.blend_kernel_path = jittered
+    try:
+        yield
+    finally:
+        rp.blend_kernel_path = kp
+
+
+@contextlib.contextmanager
+def patched_blend(dtype=None, record=None):
+    """rasterize's scan blend with its float inputs cast to `dtype` and its
+    outputs rounded back to theirs (the rest of the step unchanged), and/or
+    its inputs appended, detached, to `record`."""
+    import tpu_splat_torch.raster as rp
+    from tpu_splat_torch.raster.blend import BlendOutput, blend
+
+    def wrapped(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg):
+        if record is not None:
+            record.append(dict(tile_gid=tile_gid, tile_mask=tile_mask, hom=hom.detach(),
+                               xy=xy.detach(), opacity=opa.detach(), cfg=cfg, size=(h, w)))
+        if dtype is None:
+            return blend(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg)
+        dt0 = hom.dtype
+        up = [t.to(dtype) for t in (hom, xy, opa, nrm, col, refl)]
+        o = blend(tile_gid, tile_mask, *up, scope, bg.to(dtype), h, w, cfg)
+        return BlendOutput(**{k: (v.to(dt0) if v.is_floating_point() else v)
+                              for k, v in o._asdict().items()})
+
+    rp.blend = wrapped
+    try:
+        yield
+    finally:
+        rp.blend = blend
+
+
+KNIVES = ("accept", "terminate", "median", "lowpass", "unstable", "near")
+
+
+def knife_margins(rec):
+    """How near each of the blend's branch points every Gaussian and every
+    pixel comes, in float64 on the scan blend's layout `rec` (a
+    patched_blend record): for each knife, the least relative distance over
+    the (instance, pixel) pairs where the branch decides something:
+    accept, alpha = o*G against 1/255 on pairs reached; terminate,
+    T*(1-alpha) against 1e-4 on pairs accepted; median, T against 0.5 on
+    pairs contributing; lowpass, the ray-splat rho3d against the screen
+    filter's rho2d on pairs contributing (the branch routes the gradient to
+    the homography or to the centre); unstable, |p2| against 1e-4 in units
+    of the products it cancels; near, depth against the near plane.
+    Returns ([6, P] per Gaussian, [6, H, W] per pixel, [P] contributing
+    pixels per Gaussian)."""
+    import torch
+
+    from tpu_splat_torch.raster.blend import _excl_cumprod, _excl_cumsum, _tiles_to_image, tile_origins
+    from tpu_splat_torch.raster.config import (ALPHA_MAX, ALPHA_MIN, FILTER_INV_SQUARE, NEAR_N,
+                                               T_EPS, TILE, TILE_PIX, tile_grid)
+
+    dt = torch.float64
+    gid, gmask, cfg = rec["tile_gid"], rec["tile_mask"], rec["cfg"]
+    h_, w_ = rec["size"]
+    hom, xy, opa = (rec[k].to(dt) for k in ("hom", "xy", "opacity"))
+    dev, n_t, P = gid.device, gid.shape[0], hom.shape[0]
+    C, S, L = cfg.chunk, cfg.n_chunks, TILE_PIX
+    org = tile_origins(h_, w_, device=dev)
+    lane = torch.arange(L, device=dev)
+    pixx = (org[:, 0:1] + lane[None] % TILE).to(dt)[:, None, :]
+    pixy = (org[:, 1:2] + lane[None] // TILE).to(dt)[:, None, :]
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    g_m = torch.full((len(KNIVES), P), float("inf"), dtype=dt, device=dev)
+    p_m = torch.full((len(KNIVES), n_t, L), float("inf"), dtype=dt, device=dev)
+    n_px = torch.zeros(P, dtype=torch.int64, device=dev)
+    T = torch.ones((n_t, L), dtype=dt, device=dev)
+    done = torch.zeros((n_t, L), dtype=torch.bool, device=dev)
+    ids_s, mask_s = gid.reshape(n_t, S, C).long(), gmask.reshape(n_t, S, C)
+    with torch.no_grad():
+        for s in range(S):
+            ids, vm = ids_s[:, s], mask_s[:, s]
+            if not bool(vm.any()):
+                break
+            hm = hom[ids]
+            Tu, Tv, Tw = hm[..., 0, :], hm[..., 1, :], hm[..., 2, :]
+            c = lambda v, i: v[..., i : i + 1]
+            k0, k1, k2 = (pixx * c(Tw, i) - c(Tu, i) for i in range(3))
+            l0, l1, l2 = (pixy * c(Tw, i) - c(Tv, i) for i in range(3))
+            p0, p1, p2 = k1 * l2 - k2 * l1, k2 * l0 - k0 * l2, k0 * l1 - k1 * l0
+            cancel = torch.clamp((k0 * l1).abs() + (k1 * l0).abs(), min=1e-300)
+            unstable = p2.abs() < 1e-4
+            safe = torch.where(unstable, torch.ones_like(p2), p2)
+            sx, sy = p0 / safe, p1 / safe
+            rho3d = torch.where(unstable, torch.full_like(p2, 1e8), sx * sx + sy * sy)
+            g = xy[ids]
+            rho2d = FILTER_INV_SQUARE * ((c(g, 0) - pixx) ** 2 + (c(g, 1) - pixy) ** 2)
+            depth = sx * c(Tw, 0) + sy * c(Tw, 1) + c(Tw, 2)
+            araw = opa[ids][..., None] * torch.exp(-0.5 * torch.minimum(rho3d, rho2d))
+            alpha = torch.clamp(araw, max=ALPHA_MAX)
+            live = vm[..., None] & ~done[:, None, :]
+            accept = (depth >= NEAR_N) & (alpha >= ALPHA_MIN) & live
+            Tb = T[:, None, :] * _excl_cumprod(1.0 - torch.where(accept, alpha, 0.0), 1)
+            trigger = accept & (Tb * (1.0 - alpha) < T_EPS)
+            term_excl = _excl_cumsum(trigger.to(torch.int32), 1) > 0
+            contrib = accept & ~term_excl & ~trigger
+            reached = live & ~term_excl
+            m = (torch.where(reached & (depth >= NEAR_N), (araw - ALPHA_MIN).abs() / ALPHA_MIN, inf),
+                 torch.where(accept & ~term_excl, (Tb * (1.0 - alpha) - T_EPS).abs() / T_EPS, inf),
+                 torch.where(contrib, (Tb - 0.5).abs() / 0.5, inf),
+                 torch.where(contrib & ~unstable,
+                             (rho3d - rho2d).abs() / torch.maximum(rho3d, rho2d), inf),
+                 torch.where(reached, (p2.abs() - 1e-4).abs() / cancel, inf),
+                 torch.where(reached & (alpha >= ALPHA_MIN), (depth - NEAR_N).abs() / NEAR_N, inf))
+            flat = ids.reshape(-1)
+            for i, v in enumerate(m):
+                g_m[i].scatter_reduce_(0, flat, v.amin(2).reshape(-1), "amin")
+                p_m[i] = torch.minimum(p_m[i], v.amin(1))
+            n_px.index_add_(0, flat, contrib.sum(2).reshape(-1))
+            T = T * torch.prod(1.0 - torch.where(contrib, alpha, 0.0), 1)
+            done = done | trigger.any(1)
+            del hm, k0, k1, k2, l0, l1, l2, p0, p1, p2, cancel, sx, sy, rho3d, rho2d, depth
+            del araw, alpha, Tb, m
+    ty, tx = tile_grid(h_, w_)
+    return g_m, _tiles_to_image(p_m.permute(1, 2, 0), ty, tx, h_, w_).permute(2, 0, 1), n_px
+
+
+def forward_visits(libs, feats, index, kw):
+    """The forward's (instance, warp) pair iterations on these inputs, from
+    the profile builds with and without the cull (one launch each)."""
+    import ctypes
+
+    import torch
+
+    import kernel_ab
+
+    out = {}
+    for name in ("fwd:profile", "fwd:profile_no_cull"):
+        f = libs[name].tile_blend_fwd_profile
+        f.argtypes, f.restype = [ctypes.c_void_p], ctypes.c_int
+        buf = (ctypes.c_ulonglong * 5)()
+        f(buf)  # zero the counters
+        kernel_ab.fwd_launch(libs[name], feats, index, **kw)
+        torch.cuda.synchronize()
+        if f(buf) != 0:
+            raise RuntimeError(f"{name}: reading the profile failed")
+        out[name] = dict(pair_iterations=int(buf[3]), accepting_iterations=int(buf[4]))
+    visited = out["fwd:profile"]["pair_iterations"]
+    uncut = out["fwd:profile_no_cull"]["pair_iterations"]
+    return dict(visited=visited, without_cull=uncut, culled_share=1.0 - visited / max(uncut, 1),
+                accepting=out["fwd:profile"]["accepting_iterations"])
+
+
+def phase11_modes(dev, detail, views, fwd_libs):
+    """Slice 9: the volumetric frame and gradient through the tile kernels
+    (11a), the scan blend (11b), expand_mode="scan" (11c) and the
+    brute-force oracle (11d). Returns the kernel launches of 11a's timed
+    volumetric fwd+bwd, counted from 0."""
+    import dataclasses
+
+    import torch
+
+    import kernel_ab
+    from tpu_splat_torch.core.device import record_stages
+    from tpu_splat_torch.data.synthetic import orbit_camera
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.kernels import tile_blend as tb
+    from tpu_splat_torch.raster import rasterize
+    from tpu_splat_torch.raster.binning import bin_gaussians
+    from tpu_splat_torch.raster.bruteforce import blend_bruteforce
+    from tpu_splat_torch.raster.config import RasterConfig, production_config
+    from tpu_splat_torch.raster.preprocess import preprocess
+    from tpu_splat_torch.raster.volumetric import preprocess_volumetric
+    from tpu_splat_torch.renderer import render_fast
+    from tpu_splat_torch.train.grow import check_growth
+    from tpu_splat_torch.train.step import make_train_step
+
+    card = card_line()
+    bgd = torch.zeros(3, device=dev)
+    state = build_state(N_GAUSS, CAPACITY, device=dev)
+    cam = views[0]
+    p11 = detail["phase11"] = {"card": card}
+
+    # 11a. the volumetric frame at the bench capacities and production
+    # switches; a frame that would drop instances (a circular 3-sigma rect
+    # covers more tiles than the surfel AABB) sizes max_instances from its
+    # first call
+    leaves, normals = volumetric_leaves(state)
+    caps = dict(PROD)
+    probes = {}
+    for aa in (False, True):
+        with torch.no_grad():
+            o = volumetric_frame(state, leaves, normals, cam, production_config(**caps), bgd, aa)
+        probes[aa] = dict(instances=int(o.num_instances), max_tile_count=int(o.tile_counts.max()),
+                          pad_overflow=int(o.pad_overflow))
+    need = max(p["instances"] for p in probes.values())
+    if need > caps["max_instances"]:
+        caps["max_instances"] = -(-int(need * P11_HEADROOM) // 4096) * 4096
+    pad = 128 if any(p["pad_overflow"] for p in probes.values()) else 96
+    cfg = production_config(**caps, pad_per_tile=pad)
+    full_cfg = RasterConfig(**caps)
+    log("11a volumetric first call", **{f"aa={int(k)}": json.dumps(v).replace(" ", "")
+                                        for k, v in probes.items()},
+        max_instances_used=caps["max_instances"], pad_per_tile=pad, card=repr(card))
+    p11["first_call"] = dict(probes={int(k): v for k, v in probes.items()},
+                             max_instances=caps["max_instances"], pad_per_tile=pad)
+
+    # the forward kernel against its plain version on sampled tiles of the
+    # volumetric frame, every variant, both slabs; the visited pairs and the
+    # cull's exactness (the no-cull build bit for bit) beside the surfel frame
+    surfel_in = captured_kernel_inputs(state, cam, production_config(**PROD), bgd)
+    served = dict(train_shape=True, packed_feats=True, collect_wmax=False)
+    visits = {"surfel": forward_visits(fwd_libs, *surfel_in, served)}
+    del surfel_in
+    g = torch.Generator().manual_seed(11)
+    fwd_res = {}
+    for aa in (False, True):
+        inputs = {p: captured_forward(lambda c=c: volumetric_frame(
+            state, leaves, normals, cam, c, bgd, aa, collect_weights=False))
+            for p, c in ((True, cfg), (False, full_cfg))}
+        counts = inputs[True][1][1]
+        others = torch.randperm(counts.numel(), generator=g)[: N_SAMPLED_TILES - 1].to(dev)
+        tiles = torch.unique(torch.cat([torch.argmax(counts)[None], others]))
+        res, worst = check_variants(inputs, tiles, f"volumetric aa={int(aa)}, sampled tiles")
+        fwd_res[aa] = dict(variants=res, max_abs_err=worst)
+        bad = {}
+        for train, packed, wm in itertools.product((False, True), repeat=3):
+            kw = dict(train_shape=train, packed_feats=packed, collect_wmax=wm)
+            feats_p, index_p = inputs[packed]
+            o_k, w_k = tb.tile_blend_forward(feats_p, *index_p, **kw)
+            o_n, w_n = kernel_ab.fwd_launch(fwd_libs["fwd:no_cull"], feats_p, index_p, **kw)
+            n = (int((o_k.view(torch.int32) != o_n.view(torch.int32)).sum())
+                 + int((w_k.view(torch.int32) != w_n.view(torch.int32)).sum()))
+            if n:
+                bad[f"train={int(train)},packed={int(packed)},wmax={int(wm)}"] = n
+        if bad:
+            raise AssertionError(f"volumetric aa={int(aa)}: the cull moved bits: {bad}")
+        visits[f"volumetric aa={int(aa)}"] = dict(
+            forward_visits(fwd_libs, *inputs[True], served), cull_bit_exact=True)
+        del inputs
+    log("11a forward visits", **{k: json.dumps(v).replace(" ", "") for k, v in visits.items()})
+    p11["forward"] = {int(k): v for k, v in fwd_res.items()}
+    p11["forward_visits"] = visits
+
+    # one fwd+bwd of an L2 loss in means, scales3, rotations, opacity and SH:
+    # a warm-up with the backward kernels' inputs captured (held against
+    # their plain versions), then the timed run, its launches counted from 0
+    gt = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(21)).to(dev)
+
+    def fwd_bwd(aa):
+        out = volumetric_frame(state, leaves, normals, cam, cfg, bgd, aa)
+        loss = ((out.color - gt) ** 2).sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return out, loss, grads
+
+    grad_res = {}
+    for aa in (False, True):
+        with Capture() as cap:
+            out, loss, grads = fwd_bwd(aa)
+        (bargs, bkw), = cap.seen["tile_blend_backward"]
+        feats, index, fwd, ct = bargs[0], bargs[1:5], bargs[5], bargs[6]
+        counts = index[1]
+        others = torch.randperm(counts.numel(), generator=g)[: N_SAMPLED_TILES - 1].to(dev)
+        tiles = torch.unique(torch.cat([torch.argmax(counts)[None], others]))
+        (sargs, _), = cap.seen["segment_sum_ranges"]
+        grad_res[aa] = dict(
+            tile_blend_backward=check_backward(feats, index, fwd, ct, bkw["full_grads"],
+                                               bkw["packed_feats"], tiles),
+            segment_sum_ranges=check_segsum(*sargs), loss=float(loss.detach()),
+            instances=int(out.num_instances))
+        for k, gr in zip(leaves, grads):
+            if not (bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0.0):
+                raise AssertionError(f"volumetric aa={int(aa)}: bad gradient {k}")
+        del cap, bargs, feats, fwd, ct, sargs, grads, out
+        log("11a volumetric kernels vs plain", aa=int(aa),
+            bwd=f"{grad_res[aa]['tile_blend_backward']['max_abs_err']:.3g}/"
+                f"{grad_res[aa]['tile_blend_backward']['max_rel_err']:.3g}",
+            segsum=f"{grad_res[aa]['segment_sum_ranges']['max_abs_err']:.3g}",
+            instances=grad_res[aa]["instances"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    ms_fb, (out, loss, grads) = wall_ms(lambda: fwd_bwd(False))
+    launched = dict(LAUNCHES)
+    missing = [n for n in TRAIN_KERNELS if n != "cubemap_tap_accumulate"
+               and launched.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"volumetric fwd+bwd: kernels not launched: {missing}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del out, grads
+    frame_ms = {}
+    for aa in (False, True):
+        volumetric_frame(state, leaves, normals, cam, cfg, bgd, aa, collect_weights=False)
+        with torch.no_grad():
+            frame_ms[aa], _ = wall_ms(lambda: volumetric_frame(
+                state, leaves, normals, cam, cfg, bgd, aa, collect_weights=False))
+    runs = []
+    for _ in range(3):
+        with record_stages() as st_ms:
+            total, _ = wall_ms(lambda: fwd_bwd(False))
+        runs.append(dict(st_ms, fwd_bwd_wall=total))
+    stages = {k: float(np.median([r.get(k, 0.0) for r in runs])) for k in runs[-1]}
+    timing = dict(frame_ms={int(k): v for k, v in frame_ms.items()}, fwd_bwd_ms=ms_fb,
+                  peak_mem_gib=peak, launches=launched, stages_ms=stages,
+                  instances=int(grad_res[False]["instances"]))
+    log("11a volumetric", frame_ms=f"{frame_ms[False]:.2f}", frame_aa_ms=f"{frame_ms[True]:.2f}",
+        fwd_bwd_ms=f"{ms_fb:.2f}", instances=timing["instances"], peak_mem_gib=f"{peak:.2f}",
+        launches=json.dumps(launched).replace(" ", ""), card=repr(card))
+    log("11a volumetric stages", **{k: f"{v:.2f}" for k, v in stages.items()})
+    p11["gradient"] = {int(k): v for k, v in grad_res.items()}
+    p11["volumetric"] = timing
+
+    # the volumetric preprocess on the card against the CPU, 100k of the
+    # bench cloud at the bench view: every field binning reads, bit for bit
+    preps = {}
+    for d_ in ("cpu", dev):
+        lv = {k: v.detach()[:TIGHT_SUBSET].to(d_) for k, v in leaves.items()}
+        cam_d = orbit_camera(H, W, radius=6.0, azimuth=0.4, elevation=0.3, device=d_)
+        with torch.no_grad():
+            preps[d_] = preprocess_volumetric(
+                lv["xyz"], lv["scales3"], lv["rotation"], normals[:TIGHT_SUBSET].to(d_),
+                cam_d.world_view, cam_d.full_proj, cam_d.camera_center, H, W, cam_d.tanfovx,
+                cam_d.tanfovy, sh=lv["sh"], sh_degree=state.max_sh_degree, antialiasing=True)
+    prep_fields = ("hom", "xy", "depth", "normal_view", "radius", "rect_min", "rect_max",
+                   "tiles_touched", "valid")
+    bad = {f: int((getattr(preps[dev][0], f).cpu() != getattr(preps["cpu"][0], f)).sum())
+           for f in prep_fields}
+    bad["opacity_scale"] = int((preps[dev][1].cpu() != preps["cpu"][1]).sum())
+    if any(bad.values()):
+        raise AssertionError(f"volumetric preprocess card vs CPU: {bad}")
+    log("11a volumetric preprocess card vs cpu", gaussians=TIGHT_SUBSET, fields=len(bad),
+        differing=0, valid=int(preps["cpu"][0].valid.sum()))
+    p11["preprocess_card_vs_cpu"] = bad
+    del preps, leaves, normals
+
+    # 11b. the scan blend (backend="xla"): render_fast and one training step
+    # at full width, tile_depth grown by check_growth's rule from the first
+    # frame's max_tile_count; held against the kernel path with the same
+    # (f32, RasterConfig) switches and capacities
+    opt, ts, isp = train_start(state, N_VIEWS)
+    scan_cfg = RasterConfig(**dict(PROD, tile_depth=P11_SCAN_FIRST_DEPTH), backend="xla")
+    with torch.no_grad():
+        first = render_fast(state, cam, scan_cfg, bgd)
+    mtc = int(first.max_tile_count)
+    diag = dict(n_alive=int(state.alive.sum()), num_instances=int(first.num_instances),
+                max_tile_count=mtc, densify_overflow=0, pad_overflow=0)
+    dec = check_growth(ts, scan_cfg, **diag)
+    want_depth = -(-int(mtc * 1.5) // scan_cfg.chunk) * scan_cfg.chunk
+    if mtc <= scan_cfg.tile_depth or dec.cfg.tile_depth != want_depth:
+        raise AssertionError(f"check_growth: max_tile_count {mtc}, {dec.reasons}")
+    # the grown config (the state's rows are not grown: the frame reads them)
+    scan_cfg, growth = dec.cfg, list(dec.reasons)
+    ker_cfg = dataclasses.replace(scan_cfg, backend="auto")
+    del first, dec
+    log("11b scan growth", first_tile_depth=P11_SCAN_FIRST_DEPTH, **diag,
+        growth=repr("; ".join(growth)), tile_depth=scan_cfg.tile_depth,
+        chunks=scan_cfg.n_chunks, max_instances=scan_cfg.max_instances)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    ms_scan, o_s = wall_ms(lambda: render_fast(state, cam, scan_cfg, bgd))
+    peak_scan_frame = torch.cuda.max_memory_allocated() / 2**30
+    if sum(LAUNCHES.values()):
+        raise AssertionError(f"the scan frame launched kernels: {dict(LAUNCHES)}")
+    check_frame(o_s, scan_cfg, "scan frame")
+    del o_s
+
+    def frame(c, record=None):
+        with torch.no_grad(), patched_blend(record=record):
+            return rasterize(state.xyz, state.get_scaling(), state.rotation, state.get_opacity(),
+                             state.get_refl(), cam, bgd, c, sh=state.get_features(),
+                             sh_degree=state.max_sh_degree, alive=state.alive)
+
+    # the frame, with the pixels near a branch point of the blend in float64
+    rec = []
+    o_scan = frame(scan_cfg, rec)
+    _, px_margin, _ = knife_margins(rec[0])
+    near_knife = px_margin.amin(0) < KNIFE_BAND
+    del rec, px_margin
+    scan_vs_kernel = hold_images(o_scan, frame(ker_cfg), "scan vs kernel frame", near_knife)
+    scan_vs_kernel["near_knife_pixels"] = int(near_knife.sum())
+    log("11b scan vs kernel frame", **{k: (f"{v:.3g}" if isinstance(v, float) else v)
+                                       for k, v in scan_vs_kernel.items()})
+    del o_scan, near_knife
+
+    # the two blends' VJPs under one cotangent (seeded) on colour, maps and
+    # reflection strength: the gradients at the blend's inputs and at the
+    # reflection strength, every row within P11_GRAD_TOL of each one's max
+    gen = torch.Generator().manual_seed(5)
+    cot = [torch.rand(sh, generator=gen).to(dev) - 0.5 for sh in ((H, W, 3), (H, W, 8), (H, W))]
+    vjp = {}
+    for name, c in (("kernel", ker_cfg), ("scan", scan_cfg)):
+        vjp[name] = {}
+        lv = [t.detach().requires_grad_() for t in (
+            state.xyz, state.get_scaling(), state.rotation, state.get_opacity(),
+            state.get_refl(), state.get_features())]
+        with blend_inputs(vjp[name]):
+            o = rasterize(*lv[:5], cam, bgd, c, sh=lv[5], sh_degree=state.max_sh_degree,
+                          alive=state.alive)
+            loss = sum((m * w).sum() for m, w in zip((o.color, o.others, o.refl_map), cot))
+            vjp[name]["refl"] = torch.autograd.grad(loss, lv)[4]
+        del o, loss, lv
+    vjp_cmp = {}
+    for k, gk in vjp["kernel"].items():
+        n = gk.shape[0]
+        scale = max(float(gk.abs().max()), 1e-30)
+        rel = float((vjp["scan"][k] - gk).reshape(n, -1).abs().max()) / scale
+        vjp_cmp[k] = rel
+        if rel > P11_GRAD_TOL:
+            raise AssertionError(f"scan blend VJP d{k}: {rel} of its max against the kernel's")
+    log("11b scan vs kernel blend VJP", **{f"d{k}": f"{v:.3g}" for k, v in vjp_cmp.items()})
+    del vjp, cot
+
+    # one training step three ways: the kernels, the scan, and the kernels
+    # with their blend outputs jittered by P11_JITTER (the rows such noise
+    # moves: the step's loss amplifies its inputs' rounding, chiefly through
+    # the normal loss; tests/scan_grad_witness.py)
+    gt0 = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    steps = {}
+    for name, c, jit in (("kernel", ker_cfg, None), ("scan", scan_cfg, None),
+                         ("jittered", ker_cfg, P11_JITTER)):
+        step = make_train_step(opt, c, 1.0, isp_cfg=isp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with jittered_kernel_maps(jit):
+            ms, (_, aux) = wall_ms(lambda: step(ts, cam, gt0, bgd, frame_idx=0))
+        steps[name] = dict(ms=ms, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           aux=aux)
+    ka, sa, ja = (steps[n]["aux"] for n in ("kernel", "scan", "jittered"))
+    # each leaf: every row (a Gaussian's, or one entry of another leaf)
+    # within P11_GRAD_TOL of the leaf's max, but for as many rows as the
+    # jitter moves beyond it and at most FLIPS_PER_4096 per 4096 rows with
+    # a gradient, each within twice the jitter's largest move
+    grad_cmp = {}
+    for k, ga in ka.grads.items():
+        n = ga.shape[0] if ga.shape[0] == CAPACITY else ga.numel()
+        scale = max(float(ga.abs().max()), 1e-30)
+        err = (sa.grads[k] - ga).reshape(n, -1).abs().amax(1) / scale
+        moved = (ja.grads[k] - ga).reshape(n, -1).abs().amax(1) / scale
+        live = int((ga.reshape(n, -1).abs().amax(1) > 0).sum())
+        over = err > P11_GRAD_TOL
+        r = dict(rows_over=int(over.sum()), rows_with_gradient=live, worst=float(err.max()),
+                 rel_others=float(err[~over].max()) if bool((~over).any()) else 0.0,
+                 jitter_rows_over=int((moved > P11_GRAD_TOL).sum()),
+                 jitter_worst=float(moved.max()))
+        grad_cmp[k] = r
+        if r["rows_over"] and (r["rows_over"] > r["jitter_rows_over"]
+                               or r["rows_over"] > FLIPS_PER_4096 * live / 4096
+                               or r["worst"] > 2.0 * r["jitter_worst"]):
+            raise AssertionError(f"scan step gradient {k}: {r}")
+    loss_rel = abs(float(sa.loss) - float(ka.loss)) / abs(float(ka.loss))
+    if loss_rel > STEP_LOSS_TOL:
+        raise AssertionError(f"scan step loss {float(sa.loss)} against {float(ka.loss)}")
+    log("11b scan", frame_ms=f"{ms_scan:.1f}", frame_peak_gib=f"{peak_scan_frame:.2f}",
+        step_ms=f"{steps['scan']['ms']:.1f}", step_peak_gib=f"{steps['scan']['peak_mem_gib']:.2f}",
+        kernel_step_ms=f"{steps['kernel']['ms']:.1f}", loss_rel=f"{loss_rel:.3g}",
+        rows_over=json.dumps({k: [v["rows_over"], v["jitter_rows_over"], f"{v['worst']:.3g}",
+                                  f"{v['jitter_worst']:.3g}"] for k, v in grad_cmp.items()
+                              if v["rows_over"]}).replace(" ", ""),
+        card=repr(card))
+    p11["scan"] = dict(first_frame=diag, growth=growth,
+                       tile_depth=scan_cfg.tile_depth, frame_ms=ms_scan,
+                       frame_peak_mem_gib=peak_scan_frame, vs_kernel=scan_vs_kernel,
+                       blend_vjp=vjp_cmp,
+                       steps={n: {k: v for k, v in r.items() if k != "aux"}
+                              for n, r in steps.items()},
+                       loss_rel=loss_rel, grads=grad_cmp)
+    del steps, ka, sa, ja, ts
+
+    # 11c. the bench view's binning under expand_mode="scan" equals
+    # "gather"'s in every field, on the card (aligned and dense layouts)
+    with torch.no_grad():
+        prep = preprocess(state.xyz, state.get_scaling(), state.rotation, cam.world_view,
+                          cam.full_proj, cam.camera_center, H, W, sh=state.get_features(),
+                          sh_degree=state.max_sh_degree, opacity=state.get_opacity())
+    prep = prep._replace(valid=prep.valid & state.alive)
+    expand = {}
+    for aligned in (True, False):
+        b = {m: bin_gaussians(prep, H, W, production_config(**PROD, expand_mode=m),
+                              aligned=aligned) for m in ("gather", "scan")}
+        bad = {f: int((getattr(b["scan"], f) != getattr(b["gather"], f)).sum())
+               for f in b["gather"]._fields}
+        if any(bad.values()):
+            raise AssertionError(f"expand_mode scan against gather (aligned={aligned}): {bad}")
+        expand["aligned" if aligned else "dense"] = dict(
+            fields=len(bad), instances=int(b["scan"].num_instances))
+    log("11c expand_mode scan vs gather", **{k: json.dumps(v).replace(" ", "")
+                                             for k, v in expand.items()}, differing=0)
+    p11["expand_scan"] = expand
+    del prep, b
+
+    # 11d. the brute-force oracle against the kernel frame on the card
+    st = small_scene(P11_BF_N, 4, dev)
+    bcam = orbit_camera(P11_BF_HW, P11_BF_HW, radius=4.0, azimuth=0.4, elevation=0.3,
+                        device=dev)
+    bcfg = RasterConfig(**SMALL)
+    bbg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    with torch.no_grad():
+        ko = rasterize(st.xyz, st.get_scaling(), st.rotation, st.get_opacity(), st.get_refl(),
+                       bcam, bbg, bcfg, sh=st.get_features(), sh_degree=1)
+        bp = preprocess(st.xyz, st.get_scaling(), st.rotation, bcam.world_view, bcam.full_proj,
+                        bcam.camera_center, P11_BF_HW, P11_BF_HW, sh=st.get_features(),
+                        sh_degree=1)
+        color, others, refl, T, ncon = blend_bruteforce(
+            bp, st.get_opacity(), st.get_refl(), torch.ones_like(st.alive), bbg,
+            P11_BF_HW, P11_BF_HW)
+    bf = type(ko)(color=color, others=others, refl_map=refl, final_T=T, n_contrib=ncon,
+                  radii=ko.radii, gaussian_weights=ko.gaussian_weights,
+                  num_instances=ko.num_instances, max_area=ko.max_area,
+                  tile_counts=ko.tile_counts, pad_overflow=ko.pad_overflow)
+    bf_res = hold_images(ko, bf, "kernel frame vs brute force")
+    if float(others[..., 1].max()) < 0.5:
+        raise AssertionError("11d: the brute-force frame is empty")
+    log("11d bruteforce vs kernel", size=f"{P11_BF_HW}x{P11_BF_HW}", gaussians=P11_BF_N,
+        **{k: (f"{v:.3g}" if isinstance(v, float) else v) for k, v in bf_res.items()})
+    p11["bruteforce"] = bf_res
+    del state
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1977,7 +2653,23 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
     detail["card"] = card
 
-    # 2. build every kernel source, one nvcc each, all at once
+    # 2. build every kernel source, one nvcc each, all at once; beside them
+    # the forward's variants phase 11 reads (kernel_ab.py), in a thread
+    import threading
+
+    import kernel_ab
+
+    fwd_builds: dict = {}
+
+    def build_fwd_variants():
+        try:
+            fwd_builds.update(kernel_ab.build_variants(
+                "", os.path.join(build.BUILD_DIR, "p11"), P11_FWD_VARIANTS))
+        except Exception as e:  # re-raised where phase 11 needs them
+            fwd_builds["error"] = e
+
+    variant_thread = threading.Thread(target=build_fwd_variants)
+    variant_thread.start()
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
@@ -2636,6 +3328,7 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"iteration {it}: events {sorted(missing)} did not fire")
             diag = dict(n_alive=int(aux.n_alive), num_instances=int(aux.num_instances),
+                        max_tile_count=int(aux.max_tile_count),
                         densify_overflow=ev_log.overflowed - prev_overflow,
                         pad_overflow=int(aux.pad_overflow))
             ms_grow, dec = wall_ms(lambda: check_growth(ts, cur_cfg, **diag))
@@ -2704,8 +3397,24 @@ def main() -> int:
         eval_launches = phase9_evaluate(state, dev, detail)
         mesh_launches = phase10_mesh_and_viewer(state, dev, detail)
     finally:
+        # a trainer's failure snapshot (scripts/train.py) outlives the files
+        for root, _, names in os.walk(P8_DIR):
+            for nm in names:
+                if nm.startswith("snapshot_"):
+                    shutil.move(os.path.join(root, nm),
+                                os.path.join(OUT_DIR, f"phase8_{os.path.basename(root)}_{nm}"))
         shutil.rmtree(P8_DIR, ignore_errors=True)
     del state
+
+    # 11. the modes off the main path (slice 9)
+    variant_thread.join()
+    if "error" in fwd_builds:
+        raise fwd_builds["error"]
+    import ctypes
+
+    fwd_libs = {name: ctypes.CDLL(rec["path"]) for name, rec in fwd_builds.items()}
+    log("11 forward variants built", **{k: f"{v['seconds']:.1f}s" for k, v in fwd_builds.items()})
+    vol_launches = phase11_modes(dev, detail, views, fwd_libs)
 
     # the kernels' record: launches over the 4 timed steps of the newest
     # main path (the tight-culling step; segment_sum_rows is on no path)
@@ -2753,7 +3462,8 @@ def main() -> int:
         json.dump(detail, f, indent=1, default=str)
     log("done", seconds=f"{detail['seconds']:.1f}")
     print(json.dumps({"phase9_launches": {"tile_blend_forward": eval_launches},
-                      "phase10_launches": {"tile_blend_forward": mesh_launches}}))
+                      "phase10_launches": {"tile_blend_forward": mesh_launches},
+                      "phase11_volumetric_launches": vol_launches}))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -24,7 +24,9 @@ tree's source of each family asked for, this tree's, and their variants:
   rows or a 4x8 block, `-DFWD_WARP_COLS`; 8x4 blocks by default);
   `fwd:profile`, `fwd:profile16x2` (`-DFWD_PROFILE=1`: SM cycles each warp
   spends deriving, in its pair loops and at chunk ends, and its pair
-  iterations, read after one launch).
+  iterations, read after one launch), `fwd:profile_no_cull` (the same
+  without the cull: the pair iterations the cull saves; chip_smoke.py
+  phase 11 builds it).
 - `rows:` segment_sum_rows (`segment_sum_rows.cu`). `rows:copy_only`: this
   kernel copying its spans but summing one row a run, and `rows:sum_only`:
   summing without copying (wrong sums, timed only); `rows:min4`: four
@@ -115,6 +117,7 @@ VARIANTS = {
     "fwd:warps4x8": ("this", ("-DFWD_WARP_COLS=4",), None),
     "fwd:profile": ("this", ("-DFWD_PROFILE=1",), None),
     "fwd:profile16x2": ("this", ("-DFWD_PROFILE=1", "-DFWD_WARP_COLS=16"), None),
+    "fwd:profile_no_cull": ("this", ("-DFWD_PROFILE=1", "-DFWD_CULL=0"), None),
     "rows:base": ("base", (), None),
     "rows:this": ("this", (), None),
     "rows:copy_only": ("this", (), "rows_copy_only"),

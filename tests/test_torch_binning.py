@@ -167,7 +167,7 @@ def test_bin_gaussians_run_decode_matches_jax(binned, case):
         assert n_inst >= sw["max_instances"]
 
 
-def test_tight_culling_culls_and_scan_is_not_ported(binned):
+def test_tight_culling_culls_and_scan_equals_gather(binned):
     kernel, tight = binned[0][1], binned[1][1]
     assert int(tight.num_instances) < int(kernel.num_instances)
     # a Gaussian's run [seg_start, seg_end) holds its tight instances and
@@ -177,8 +177,11 @@ def test_tight_culling_culls_and_scan_is_not_ported(binned):
     assert bool((t_len < k_len).any())
     prep = _scene_prep("aniso")
     tprep = Preprocessed(*(_t(getattr(prep, f)) for f in Preprocessed._fields))
-    with pytest.raises(NotImplementedError):
-        t_bin(tprep, H, W, tcfg.RasterConfig(**BASE, max_instances=8192, expand_mode="scan"))
+    # expand_mode="scan" bins exactly as "gather"
+    scan = t_bin(tprep, H, W, tcfg.RasterConfig(**BASE, max_instances=8192, expand_mode="scan"))
+    gather = t_bin(tprep, H, W, tcfg.RasterConfig(**BASE, max_instances=8192))
+    for f in scan._fields:
+        assert torch.equal(getattr(scan, f), getattr(gather, f)), f
 
 
 def _segments(rng, n, p):

@@ -278,26 +278,32 @@ def test_densify_and_prune_matches_jax(size_prune):
 
 # -- check_growth -------------------------------------------------------------
 
-def _port_diag(diag):
-    """The JAX diagnostics without max_tile_count, which grows only the
-    unported scan blend's tile_depth."""
-    return {k: v for k, v in diag.items() if k != "max_tile_count"}
-
-
 @pytest.mark.parametrize("diag", [
     dict(n_alive=100, num_instances=1000, max_tile_count=40, densify_overflow=0),
     dict(n_alive=120, num_instances=1000, max_tile_count=40, densify_overflow=0),
     dict(n_alive=50, num_instances=3900, max_tile_count=900, densify_overflow=3),
     dict(n_alive=50, num_instances=4000, max_tile_count=40, densify_overflow=0, pad_overflow=2),
-], ids=["none", "rows", "rows-instances-columns", "instances-pads"])
+    # the scan blend (backend="xla"): a tile past tile_depth grows it
+    dict(n_alive=100, num_instances=1000, max_tile_count=300, densify_overflow=0,
+         backend="xla"),
+    dict(n_alive=120, num_instances=3900, max_tile_count=1000, densify_overflow=0,
+         backend="xla"),
+    dict(n_alive=100, num_instances=1000, max_tile_count=256, densify_overflow=0,
+         backend="xla"),
+], ids=["none", "rows", "rows-instances-columns", "instances-pads", "scan-tile_depth",
+        "scan-rows-instances-tile_depth", "scan-tile_depth-full"])
 def test_check_growth_matches_jax(diag):
+    diag = dict(diag)
+    backend = diag.pop("backend", "pallas")
     d = _start_state(2)
     jts = _jax_ts(d, jax.random.PRNGKey(0))
     tts = train_state_from_numpy(d, device="cpu")
     cols = 4096 if diag["num_instances"] == 3900 else 0
-    sw = dict(KW, max_columns=cols)
-    a = jgrow.check_growth(jts, production_config(backend="pallas", **sw), **diag)
-    b = tgrow.check_growth(tts, tcfg.production_config(**sw), **_port_diag(diag))
+    sw = dict(KW, max_columns=cols, backend=backend)
+    a = jgrow.check_growth(jts, production_config(**sw), **diag)
+    b = tgrow.check_growth(tts, tcfg.production_config(**sw), **diag)
+    if backend == "xla":
+        assert ("tile_depth" in " ".join(b.reasons)) == (diag["max_tile_count"] > KW["tile_depth"])
     assert (a.grew, a.reasons) == (b.grew, b.reasons)
     for f in ("max_instances", "max_columns", "pad_per_tile", "tile_depth"):
         assert getattr(a.cfg, f) == getattr(b.cfg, f), f
@@ -497,7 +503,7 @@ def test_loop_events_match_jax(setup):
                     max_tile_count=int(aux.max_tile_count), densify_overflow=0,
                     pad_overflow=int(aux.pad_overflow))
         a = jgrow.check_growth(jts, jcfg, **diag)
-        b = tgrow.check_growth(ts, cfg, **_port_diag(diag))
+        b = tgrow.check_growth(ts, cfg, **diag)
         assert (a.grew, a.reasons) == (b.grew, b.reasons), it
         if b.grew:
             ts, cfg, jcfg = b.ts, b.cfg, a.cfg

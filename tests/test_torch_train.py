@@ -421,6 +421,48 @@ def test_apply_isp_matches_jax(frame, controller):
     assert abs(a - b) <= 1e-6 * abs(a)
 
 
+def test_isp_gradient_finite_where_the_gamma_slope_is_infinite():
+    """A pre-gamma value exactly 0 with gamma < 1 (x ** gamma's slope is
+    infinite there): the JAX package's gradient is not finite; the port's
+    takes that value's gradient as 0, and equals the JAX gradient taken
+    without it."""
+    rng = np.random.default_rng(8)
+    rgb = rng.uniform(0.1, 1.0, (6, 7, 3)).astype(np.float32)
+    gain = (np.eye(3) + 0.05 * rng.normal(size=(3, 3))).astype(np.float32)
+    bias = np.array([-0.02, 0.01, -0.03], np.float32)
+    log_gamma = np.array([-0.2, 0.1, -0.3], np.float32)
+    # two black pixels: channel 0 lands on 0 exactly, channel 2 clamps below
+    rgb[0, :2] = 0.0
+    bias[0] = 0.0
+    w = rng.uniform(0.5, 1.5, rgb.shape).astype(np.float32)
+
+    def jgrads(r, wt):
+        return jax.grad(lambda *a: jnp.sum(wt * jisp._transform(*a)), argnums=(0, 1, 2, 3))(
+            jnp.asarray(r), jnp.asarray(gain), jnp.asarray(bias), jnp.asarray(log_gamma))
+
+    bad = jgrads(rgb, w)
+    assert not all(bool(np.isfinite(np.asarray(g)).all()) for g in bad)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (rgb, gain, bias, log_gamma)]
+    out = tisp._transform(*leaves)
+    want_out = np.asarray(jisp._transform(*map(jnp.asarray, (rgb, gain, bias, log_gamma))))
+    np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=1e-6,
+                               atol=1e-6 * np.abs(want_out).max())
+    got = torch.autograd.grad((torch.from_numpy(w) * out).sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    # over the other pixels the JAX gradient; the parameters' gradients are
+    # that plus the black pixels' own (finite) part
+    keep = np.ones(rgb.shape[:2], bool)
+    keep[0, :2] = False
+    want = jgrads(rgb[keep][None], w[keep][None])
+    np.testing.assert_allclose(got[0].numpy()[keep], np.asarray(want[0])[0], rtol=1e-6)
+    black = [torch.from_numpy(rgb[~keep][None]).requires_grad_()] + [
+        torch.from_numpy(x).requires_grad_() for x in (gain, bias, log_gamma)]
+    part = torch.autograd.grad((torch.from_numpy(w[~keep][None]) * tisp._transform(*black)).sum(),
+                               black)
+    for g, wnt, p in zip(got[1:], want[1:], part[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt) + p.numpy(), rtol=1e-5, atol=1e-6)
+
+
 def test_adam_step_matches_jax():
     rng = np.random.default_rng(12)
     shapes = {"xyz": (50, 3), "opacity": (50, 1), "env_texture": (6, 3, 4, 4), "isp_gain": (2, 3, 3)}

@@ -74,7 +74,15 @@ def _transform(rgb, gain, bias, log_gamma):
     gamma = torch.exp(log_gamma)
     # a maximum, as `jnp.clip` (1/2 gradient at a tie); at an exactly-zero
     # pixel the exponent's gradient is 0, as JAX's pow gives it
-    return torch.maximum(out, torch.zeros_like(out)) ** gamma
+    base = torch.maximum(out, torch.zeros_like(out))
+    # x ** gamma has an infinite slope at x = 0 when gamma < 1: the JAX
+    # package's gradient there is inf, and one exactly-zero value (a clamped
+    # pixel, or out == 0 exactly) turns the whole step's gradient NaN. There
+    # the value is 0 and its gradient is taken as 0; everywhere else this is
+    # max(out, 0) ** gamma, value and gradient, as in the JAX package
+    steep = (base == 0) & (gamma < 1)
+    safe = torch.where(steep, torch.ones_like(base), base)
+    return torch.where(steep, torch.zeros_like(base), safe**gamma)
 
 
 def apply_isp(

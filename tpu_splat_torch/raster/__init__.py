@@ -1,7 +1,8 @@
-"""Surfel rasterizer: preprocess -> bin -> blend (port of
-tpu_splat/raster/__init__.py, surfel mode on one device, aligned kernel
-path). Differentiable in the Gaussian attributes and the `screen_offset`
-densify probe."""
+"""Differentiable rasterizer: preprocess -> bin -> blend (port of
+tpu_splat/raster/__init__.py on one device). Surfel (2DGS) or volumetric
+(3DGS EWA) splats, blended by the tile kernels or by the scan blend;
+differentiable in the Gaussian attributes and the `screen_offset` densify
+probe."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -13,7 +14,8 @@ from tpu_splat_torch.core.graphics import Camera
 from tpu_splat_torch.raster.config import RasterConfig
 from tpu_splat_torch.raster.preprocess import preprocess
 from tpu_splat_torch.raster.binning import bin_gaussians
-from tpu_splat_torch.raster.blend import blend_kernel_path
+from tpu_splat_torch.raster.blend import blend, blend_kernel_path
+from tpu_splat_torch.raster.volumetric import preprocess_volumetric
 
 # allmap channel offsets (reference auxiliary.h:22-28)
 DEPTH_CH = 0
@@ -53,13 +55,21 @@ def rasterize(
     scope_mask: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
     screen_offset: torch.Tensor | None = None,
+    hom_precomp: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
+    mode: str = "surfel",
+    normals: torch.Tensor | None = None,
+    antialiasing: bool = False,
     collect_weights: bool = True,
 ) -> RasterOutput:
-    """2DGS surfels (scales [P,2]) on one device through the tile kernel.
+    """mode="surfel": 2DGS disks (scales [P,2], the production path).
+    mode="volumetric": classic 3DGS EWA splats (scales [P,3]), the
+    per-Gaussian input `normals` blended (default +z); `antialiasing`
+    scales opacity by the Mip-Splatting factor. `cfg.backend` picks the
+    blend: the tile kernels ("auto", "pallas") or the scan blend ("xla").
     Runs on the device the inputs live on."""
-    if cfg.backend == "xla":
-        raise NotImplementedError("the XLA scan blend is not ported; use backend='auto'")
+    if mode not in ("surfel", "volumetric"):
+        raise ValueError(f"mode must be 'surfel' or 'volumetric', not {mode!r}")
     full_precision_matmul()
     H, W = camera.height, camera.width
     P = means3d.shape[0]
@@ -68,28 +78,55 @@ def rasterize(
 
     with stage("preprocess"):
         # the preprocess VJP spans from its outputs' gradients to its inputs'
-        means3d, scales, rotations, sh, screen_offset = backward_edge(
-            "preprocess_vjp", "end", means3d, scales, rotations, sh, screen_offset
+        # (opacity among them: the volumetric preprocess rescales it)
+        means3d, scales, rotations, opacity, sh, screen_offset, hom_precomp = backward_edge(
+            "preprocess_vjp", "end", means3d, scales, rotations, opacity, sh, screen_offset,
+            hom_precomp
         )
-        prep = preprocess(
-            means3d,
-            scales,
-            rotations,
-            camera.world_view,
-            camera.full_proj,
-            camera.camera_center,
-            H,
-            W,
-            sh=sh,
-            sh_degree=sh_degree,
-            colors=colors,
-            scale_modifier=scale_modifier,
-            screen_offset=screen_offset,
-            opacity=opacity if cfg.opacity_rect else None,
-            circular_rect=cfg.circular_rect,
-        )
-        hom, xy, normal_view, color = backward_edge(
-            "preprocess_vjp", "start", prep.hom, prep.xy, prep.normal_view, prep.color
+        if mode == "volumetric":
+            if normals is None:
+                normals = torch.zeros((P, 3), dtype=means3d.dtype, device=means3d.device)
+                normals[:, 2] = 1.0
+            prep, opa_scale = preprocess_volumetric(
+                means3d,
+                scales,
+                rotations,
+                normals,
+                camera.world_view,
+                camera.full_proj,
+                camera.camera_center,
+                H,
+                W,
+                camera.tanfovx,
+                camera.tanfovy,
+                sh=sh,
+                sh_degree=sh_degree,
+                colors=colors,
+                scale_modifier=scale_modifier,
+                antialiasing=antialiasing,
+            )
+            opacity = opacity * opa_scale
+        else:
+            prep = preprocess(
+                means3d,
+                scales,
+                rotations,
+                camera.world_view,
+                camera.full_proj,
+                camera.camera_center,
+                H,
+                W,
+                sh=sh,
+                sh_degree=sh_degree,
+                colors=colors,
+                scale_modifier=scale_modifier,
+                screen_offset=screen_offset,
+                hom_precomp=hom_precomp,
+                opacity=opacity if cfg.opacity_rect else None,
+                circular_rect=cfg.circular_rect,
+            )
+        hom, xy, normal_view, color, opacity = backward_edge(
+            "preprocess_vjp", "start", prep.hom, prep.xy, prep.normal_view, prep.color, opacity
         )
         prep = prep._replace(hom=hom, xy=xy, normal_view=normal_view, color=color)
         if alive is not None:
@@ -101,31 +138,55 @@ def rasterize(
                     valid, prep.tiles_touched, torch.zeros_like(prep.tiles_touched)
                 ),
             )
+    use_kernel = cfg.use_kernel()
     with stage("binning"):
-        binned = bin_gaussians(prep, H, W, cfg)
-    out = blend_kernel_path(
-        binned,
-        prep.hom,
-        prep.xy,
-        opacity,
-        prep.normal_view,
-        prep.color,
-        refl,
-        scope_mask,
-        bg,
-        H,
-        W,
-        train_shape=cfg.grad_channels == "train",
-        bf16_grads=cfg.bf16_grads,
-        bf16_feats=cfg.bf16_feats,
-        collect_weights=collect_weights,
-    )
+        binned = bin_gaussians(prep, H, W, cfg, aligned=use_kernel)
+    if use_kernel:
+        out = blend_kernel_path(
+            binned,
+            prep.hom,
+            prep.xy,
+            opacity,
+            prep.normal_view,
+            prep.color,
+            refl,
+            scope_mask,
+            bg,
+            H,
+            W,
+            train_shape=cfg.grad_channels == "train",
+            bf16_grads=cfg.bf16_grads,
+            bf16_feats=cfg.bf16_feats,
+            collect_weights=collect_weights,
+        )
+        gw = out.gaussian_weights
+    else:
+        with stage("scan_blend"):
+            out = blend(
+                binned.tile_gid,
+                binned.tile_mask,
+                prep.hom,
+                prep.xy,
+                opacity,
+                prep.normal_view,
+                prep.color,
+                refl,
+                scope_mask,
+                bg,
+                H,
+                W,
+                cfg,
+            )
+        gw = out.gaussian_weights
+        if not collect_weights:
+            # as the kernel path's serving frame: densify stats off
+            gw = torch.zeros_like(gw)
     return RasterOutput(
         color=out.color,
         others=out.others,
         refl_map=out.refl_map,
         radii=prep.radius,
-        gaussian_weights=out.gaussian_weights,
+        gaussian_weights=gw,
         final_T=out.final_T,
         n_contrib=out.n_contrib,
         num_instances=binned.num_instances,

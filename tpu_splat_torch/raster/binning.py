@@ -1,24 +1,34 @@
-"""Tile binning into the 128-aligned per-tile instance layout.
+"""Tile binning: the 128-aligned per-tile instance layout of the tile
+kernels, or the dense per-tile layout of the scan blend.
 
-Port of tpu_splat/raster/binning.py on its aligned path (the role of the
-reference tile scheduler, rasterizer_impl.cu:70-138): depth-argsort the
-Gaussians, expand each one into capacity slots, count instances per tile,
-then one sort by (tile, depth rank) lays every tile's instances out front
-to back in a 128-aligned exclusive range, with pad slots after them.
+Port of tpu_splat/raster/binning.py (the role of the reference tile
+scheduler, rasterizer_impl.cu:70-138): depth-argsort the Gaussians, expand
+each one into capacity slots, count instances per tile, then
+- `aligned=True` (the tile kernels): one sort by (tile, depth rank) lays
+  every tile's instances out front to back in a 128-aligned exclusive
+  range, with pad slots after them (`Binned`);
+- `aligned=False` (the scan blend, `backend="xla"`): one stable sort by
+  tile of the emitted Gaussian ids, cut into a dense `[T, tile_depth]`
+  table per tile, truncated at `tile_depth` (`DenseBinned`).
 
 The expansion comes in the JAX package's formulations:
 - `expand_mode="gather"`: mark + cumsum + cummax + one row gather of each
   Gaussian's tile rect;
+- `expand_mode="scan"` is accepted so configs spell the same in both
+  packages, and runs as "gather": the JAX package's hold-last scans exist
+  to avoid a TPU row gather, which the card does not need, and both give
+  the same integers;
 - `expand_mode="kernel"`: the `run_expand` kernel decodes the rect rows;
-- `tight_culling`: two levels of `run_expand`, Gaussians to tile columns,
-  then each column to the tile rows its 3-sigma conic (union the low-pass
-  disk) covers over that column (PARITY.md D2). Every column emits at least
-  one instance (an out-of-image dummy when its range is empty), so each
-  Gaussian's per-Gaussian run [seg_start, seg_end) holds its dummies too.
+- `tight_culling` (aligned layout only, as in the JAX package): two levels
+  of `run_expand`, Gaussians to tile columns, then each column to the tile
+  rows its 3-sigma conic (union the low-pass disk) covers over that column
+  (PARITY.md D2). Every column emits at least one instance (an
+  out-of-image dummy when its range is empty), so each Gaussian's
+  per-Gaussian run [seg_start, seg_end) holds its dummies too.
 Both run-decode paths need `max_instances` (and for tight culling
 `max_columns`) to be a multiple of 4096; otherwise kernel mode runs as
-gather and tight culling is off, as in the JAX package. `expand_mode="scan"`
-is not ported and raises NotImplementedError.
+gather and tight culling is off, as in the JAX package. All modes give
+the same integers.
 
 The capacities are static, as in the JAX package: instances past
 `max_instances` are dropped (the tail of the emission order, i.e. the
@@ -56,6 +66,20 @@ class Binned(NamedTuple):
     seg_start: torch.Tensor  # [P] by rank: first emission slot
     seg_end: torch.Tensor  # [P] by rank: end emission slot
     pad_overflow: torch.Tensor  # [] pads beyond cfg.pad_per_tile budget
+
+
+class DenseBinned(NamedTuple):
+    """The scan blend's layout (`bin_gaussians(aligned=False)`; the JAX
+    `Binned` with aligned=False, whose aligned fields are None)."""
+
+    tile_gid: torch.Tensor  # [T, K] per-tile depth-sorted Gaussian ids
+    tile_mask: torch.Tensor  # [T, K] bool, k < min(count, tile_depth)
+    num_instances: torch.Tensor  # [] int true instance count (overflow check)
+    max_area: torch.Tensor  # [] int max tiles touched by one Gaussian
+    tile_counts: torch.Tensor  # [T] int32 instances per tile (pre-truncation)
+    sorted_gid: torch.Tensor  # [cap] tile-sorted Gaussian ids
+    tile_starts: torch.Tensor  # [T] range start per tile in sorted_gid
+    pad_overflow: torch.Tensor  # [] always 0: the layout has no pads
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -275,10 +299,14 @@ def _tight_expand(prep, gorder, area_o, packed, rw_col, cap, cap_cols, tiles_y, 
 
 
 def bin_gaussians(
-    prep: Preprocessed, height: int, width: int, cfg: RasterConfig
-) -> Binned:
+    prep: Preprocessed, height: int, width: int, cfg: RasterConfig, aligned: bool = True
+) -> Binned | DenseBinned:
     """Invariant: valid rows have tiles_touched > 0 (preprocess guarantees
-    it), so zero-area rows sort past the emitting prefix."""
+    it), so zero-area rows sort past the emitting prefix.
+
+    `aligned` as in the JAX package (there its default is False; every
+    caller here but the scan blend wants the kernel layout): True gives
+    `Binned`, False `DenseBinned` with tight culling off."""
     dev = prep.depth.device
     tiles_y, tiles_x = tile_grid(height, width)
     if tiles_x > 1024 or tiles_y > 1024:
@@ -291,7 +319,7 @@ def bin_gaussians(
     cap = cfg.max_instances
     cap_cols = cfg.max_columns or cap
     mode = cfg.expand_mode
-    tight = cfg.tight_culling
+    tight = cfg.tight_culling and aligned
     if mode == "kernel" or tight:  # the run decode needs 4096-slot capacities
         if cap % EXPAND_BLK:
             tight = False
@@ -301,8 +329,6 @@ def bin_gaussians(
             tight = False
     if tight:
         mode = "tight"
-    if mode == "scan":
-        raise NotImplementedError("expand_mode='scan' is not ported; use 'gather' or 'kernel'")
     P_ = prep.depth.shape[0]
     i64 = lambda x: x.to(torch.int64)
     prep = Preprocessed(*(x.detach() for x in prep))
@@ -349,8 +375,9 @@ def bin_gaussians(
         inst_gid = torch.where(slot_valid, rows[3].long(), torch.zeros_like(tx))
         gsel = rows[4].long()
     else:
-        # run decode + one row gather: the depth rank of each slot, and the
-        # index within its Gaussian's tile rect
+        # "gather" (and "scan", see the module docstring): run decode + one
+        # row gather: the depth rank of each slot, and the index within its
+        # Gaussian's tile rect
         gsel = _run_ranks(offsets, area_o > 0, cap)  # [cap] depth rank per slot
         j = i - offsets[torch.clamp(gsel, min=0)]
         rows = torch.stack([packed, gorder], dim=1)[gsel]  # [cap, 2] row gather
@@ -372,6 +399,30 @@ def bin_gaussians(
     )
     starts = se[:n_tiles]
     counts = se[1:] - starts
+    if max_area is None:
+        num_instances = total
+        max_area = area.max() if P_ else torch.zeros((), dtype=torch.int64, device=dev)
+    i32 = lambda x: x.to(torch.int32)
+
+    if not aligned:
+        # the scan blend's layout: one stable payload sort by tile (emission
+        # is depth-grouped, so each tile's ids come out front to back), then
+        # the first tile_depth of each tile's range
+        order = torch.sort(inst_tile, stable=True).indices
+        sorted_gid = inst_gid[order]
+        counts_capped = torch.clamp(counts, max=cfg.tile_depth)
+        k = torch.arange(cfg.tile_depth, dtype=torch.int64, device=dev)[None, :]
+        slots = torch.clamp(starts[:, None] + k, 0, cap - 1)
+        return DenseBinned(
+            tile_gid=i32(sorted_gid[slots]),
+            tile_mask=k < counts_capped[:, None],
+            num_instances=num_instances,
+            max_area=max_area,
+            tile_counts=i32(counts),
+            sorted_gid=i32(sorted_gid),
+            tile_starts=i32(starts),
+            pad_overflow=torch.zeros((), dtype=torch.int64, device=dev),
+        )
 
     # 4. one sort into the 128-aligned layout: append one pad instance per
     # missing slot (keyed by its tile) and sort by (tile, rank). (tile, rank)
@@ -408,12 +459,9 @@ def bin_gaussians(
     if seg_start is None:
         seg_start = torch.clamp(offsets, max=cap)
         seg_end = torch.clamp(offsets + area_o, max=cap)
-        num_instances = total
-        max_area = area.max() if P_ else torch.zeros((), dtype=torch.int64, device=dev)
     rank_of = torch.empty_like(gorder)
     rank_of[gorder] = rank_ids
 
-    i32 = lambda x: x.to(torch.int32)
     return Binned(
         num_instances=num_instances,
         max_area=max_area,

@@ -1,19 +1,42 @@
-"""Tile blending through the tile kernel pair, and image assembly.
+"""Tile blending: through the tile kernel pair, or as the scan blend; and
+image assembly.
 
-Port of the kernel path of tpu_splat/raster/blend.py (`blend_pallas`,
-differentiable, `assemble_image`, `tile_origins`, `_tiles_to_image`). The
-XLA scan blend of the JAX package is not ported.
+Port of tpu_splat/raster/blend.py on one device: `blend_kernel_path` (the
+JAX `blend_pallas`), `assemble_image`, `tile_origins`, `_tiles_to_image`,
+and the scan blend `blend` (`backend="xla"`). The scan blend is the
+reference compositing (forward.cu:258-489) rewritten for whole tile grids:
+each tile's depth-sorted list is consumed `chunk` instances at a time, and
+within a chunk the front-to-back "over" recurrence becomes exclusive
+cumulative products of (1 - alpha) along the chunk axis, over [tiles,
+chunk, 256 pixels] at once. Termination (T < 1e-4), the alpha skip, median
+depth and distortion are kept with cumulative masks; the per-Gaussian max
+weight is a scatter-max. It is plain PyTorch on the tensors' device,
+differentiated by autograd; each chunk runs under
+`torch.utils.checkpoint`, so the backward recomputes a chunk's [T, C, 256]
+intermediates instead of keeping them all.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpu_splat_torch.core.device import stage
 from tpu_splat_torch.core.segops import segment_max_sorted
 from tpu_splat_torch.kernels import tile_blend as tb
-from tpu_splat_torch.raster.config import TILE, tile_grid
+from tpu_splat_torch.raster.config import (
+    ALPHA_MAX,
+    ALPHA_MIN,
+    FAR_N,
+    FILTER_INV_SQUARE,
+    NEAR_N,
+    T_EPS,
+    TILE,
+    TILE_PIX,
+    RasterConfig,
+    tile_grid,
+)
 
 
 class BlendOutput(NamedTuple):
@@ -160,3 +183,256 @@ def blend_kernel_path(
 
 
 blend_pallas = blend_kernel_path  # name of the JAX counterpart
+
+
+# -- the scan blend (backend="xla") ---------------------------------------------
+
+class BlendCarry(NamedTuple):
+    T: torch.Tensor  # [T, L] transmittance
+    done: torch.Tensor  # [T, L] bool, terminated
+    color: torch.Tensor  # [T, L, 3]
+    normal: torch.Tensor  # [T, L, 3] view-space
+    depth: torch.Tensor  # [T, L] expected depth accumulator
+    refl: torch.Tensor  # [T, L]
+    dist: torch.Tensor  # [T, L] distortion accumulator
+    m1: torch.Tensor  # [T, L]
+    m2: torch.Tensor  # [T, L]
+    scope: torch.Tensor  # [T, L] env-scope mask hit
+    median_depth: torch.Tensor  # [T, L]
+    n_contrib: torch.Tensor  # [T, L] int32 (1-based last contributor)
+    median_idx: torch.Tensor  # [T, L] int32 (1-based median contributor)
+    gw: torch.Tensor  # [P] max blend weight per Gaussian
+
+
+class GaussFeats(NamedTuple):
+    """Per-Gaussian blending attributes."""
+
+    hom: torch.Tensor  # [P,3,3]
+    xy: torch.Tensor  # [P,2]
+    opacity: torch.Tensor  # [P]
+    normal_view: torch.Tensor  # [P,3]
+    color: torch.Tensor  # [P,3]
+    refl: torch.Tensor  # [P]
+    scope_mask: torch.Tensor  # [P] bool
+
+
+def _excl_cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
+    cp = torch.cumprod(x, dim)
+    one = torch.ones_like(cp.narrow(dim, 0, 1))
+    return torch.cat([one, cp.narrow(dim, 0, x.shape[dim] - 1)], dim)
+
+
+def _excl_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cumsum(x, dim) - x
+
+
+def _chunk(feats: GaussFeats, hom64, xy64, org64, pixx, pixy, gk_base, carry: tuple, ids,
+           vmask):
+    """One chunk of C instances of every tile (tpu_splat/raster/blend.py:
+    _blend_scan.body). ids, vmask [T, C]; hom64, xy64 the homographies and
+    centres in float64; org64 [T, 1, 2] the tile origins; pixx, pixy
+    [1, 1, L] the pixel offsets within a tile; gk_base [1, C, 1] the
+    chunk's 1-based instance indices.
+
+    The intersection is evaluated in tile-local pixel coordinates: each
+    (tile, instance) homography is moved to the tile's origin in float64
+    (Tu - ox Tw, Tv - oy Tw) and rounded once, so the per-pixel products
+    no longer cancel terms as large as the absolute pixel coordinates, as
+    the JAX scan's `px Tw - Tu` does; in exact arithmetic the two are the
+    same. The gradients of the shift accumulate into hom64 and xy64 in
+    float64."""
+    c = BlendCarry(*carry)
+    dt = feats.opacity.dtype
+    h64 = hom64[ids]  # [T,C,3,3]
+    ox, oy = org64[..., 0:1], org64[..., 1:2]  # [T,1,1]
+    Tw64 = h64[..., 2, :]
+    Tu = (h64[..., 0, :] - ox * Tw64).to(dt)
+    Tv = (h64[..., 1, :] - oy * Tw64).to(dt)
+    Tw = Tw64.to(dt)
+    g_xy = (xy64[ids] - org64).to(dt)  # [T,C,2] tile-local
+    opa = feats.opacity[ids]  # [T,C]
+    nrm = feats.normal_view[ids]  # [T,C,3]
+    col = feats.color[ids]  # [T,C,3]
+    rfl = feats.refl[ids]  # [T,C]
+    scp = feats.scope_mask[ids]  # [T,C]
+
+    def comp(v, i):
+        return v[..., i : i + 1]  # [T,C,1] against [T,1,L]
+
+    # ray-splat intersection (2DGS Eqs. 8-10; forward.cu:363-394)
+    k0 = pixx * comp(Tw, 0) - comp(Tu, 0)
+    k1 = pixx * comp(Tw, 1) - comp(Tu, 1)
+    k2 = pixx * comp(Tw, 2) - comp(Tu, 2)
+    l0 = pixy * comp(Tw, 0) - comp(Tv, 0)
+    l1 = pixy * comp(Tw, 1) - comp(Tv, 1)
+    l2 = pixy * comp(Tw, 2) - comp(Tv, 2)
+    p0 = k1 * l2 - k2 * l1
+    p1 = k2 * l0 - k0 * l2
+    p2 = k0 * l1 - k1 * l0
+    unstable = torch.abs(p2) < 1e-4
+    inv_p2 = 1.0 / torch.where(unstable, torch.ones_like(p2), p2)
+    zero = torch.zeros_like(p2)
+    sx = torch.where(unstable, zero, p0 * inv_p2)
+    sy = torch.where(unstable, zero, p1 * inv_p2)
+    rho3d = torch.where(unstable, torch.full_like(p2, 1e8), sx * sx + sy * sy)
+    dx = comp(g_xy, 0) - pixx
+    dy = comp(g_xy, 1) - pixy
+    rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+    rho = torch.minimum(rho3d, rho2d)
+    # the reference backward's depth-value gradient (backward.cu:461-471):
+    # in the low-pass branch (rho2d < rho3d) s is held constant, so depth
+    # gradients reach Tw only as dL_dz * (s.x, s.y, 1)
+    use3 = rho3d <= rho2d
+    sxd = torch.where(use3, sx, sx.detach())
+    syd = torch.where(use3, sy, sy.detach())
+    depth = sxd * comp(Tw, 0) + syd * comp(Tw, 1) + comp(Tw, 2)
+
+    G = torch.exp(-0.5 * rho)
+    alpha = torch.clamp(opa[..., None] * G, max=ALPHA_MAX)  # [T,C,L]
+    accept = (depth >= NEAR_N) & (alpha >= ALPHA_MIN) & vmask[..., None] & ~c.done[:, None, :]
+    a_eff = torch.where(accept, alpha, zero)
+
+    prefix = _excl_cumprod(1.0 - a_eff, 1)  # [T,C,L]
+    T_before = c.T[:, None, :] * prefix
+    trigger = accept & (T_before * (1.0 - alpha) < T_EPS)
+    term_excl = _excl_cumsum(trigger.to(torch.int32), 1) > 0
+    contrib = accept & ~term_excl & ~trigger
+    w = torch.where(contrib, alpha * T_before, zero)  # [T,C,L]
+
+    a_contrib = torch.where(contrib, alpha, zero)
+    T_out = c.T * torch.prod(1.0 - a_contrib, 1)
+    done_out = c.done | trigger.any(1)
+
+    color_out = c.color + torch.einsum("tcl,tck->tlk", w, col)
+    normal_out = c.normal + torch.einsum("tcl,tck->tlk", w, nrm)
+    depth_out = c.depth + torch.sum(depth * w, 1)
+    refl_out = c.refl + torch.sum(rfl[..., None] * w, 1)
+    scope_out = c.scope | (scp[..., None] & contrib).any(1)
+
+    # depth distortion (2DGS appendix; forward.cu:419-427)
+    safe_depth = torch.clamp(depth, min=NEAR_N)
+    m = FAR_N / (FAR_N - NEAR_N) * (1.0 - NEAR_N / safe_depth)
+    A = 1.0 - T_before
+    mw = m * w
+    m2w = m * m * w
+    M1b = c.m1[:, None, :] + _excl_cumsum(mw, 1)
+    M2b = c.m2[:, None, :] + _excl_cumsum(m2w, 1)
+    dist_out = c.dist + torch.sum((m * m * A + M2b - 2.0 * m * M1b) * w, 1)
+    m1_out = c.m1 + torch.sum(mw, 1)
+    m2_out = c.m2 + torch.sum(m2w, 1)
+
+    # median depth: the last contributor with T_before > 0.5 (forward.cu:429-433)
+    izero = torch.zeros((), dtype=torch.int32, device=ids.device)
+    med_cond = contrib & (T_before > 0.5)
+    med_rank = torch.where(med_cond, gk_base, izero).amax(1)  # [T,L]
+    has_med = med_rank > 0
+    sel = med_cond & (gk_base == med_rank[:, None, :])
+    med_depth_new = torch.sum(torch.where(sel, depth, zero), 1)
+    median_depth_out = torch.where(has_med, med_depth_new, c.median_depth)
+    median_idx_out = torch.maximum(c.median_idx, med_rank)
+    n_contrib_out = torch.maximum(c.n_contrib, torch.where(contrib, gk_base, izero).amax(1))
+
+    # per-Gaussian max blend weight (replaces atomicExch, forward.cu:457-459)
+    w_inst = w.detach().amax(2)  # [T,C]
+    gw_out = c.gw.scatter_reduce(0, ids.reshape(-1).long(), w_inst.reshape(-1), "amax")
+    return (T_out, done_out, color_out, normal_out, depth_out, refl_out, dist_out, m1_out,
+            m2_out, scope_out, median_depth_out, n_contrib_out, median_idx_out, gw_out)
+
+
+def _blend_scan(
+    tile_gid: torch.Tensor,  # [T, K]
+    tile_mask: torch.Tensor,  # [T, K]
+    org_xy: torch.Tensor,  # [T, 2] pixel origin of each tile
+    feats: GaussFeats,
+    cfg: RasterConfig,
+) -> BlendCarry:
+    n_tiles = tile_gid.shape[0]
+    P_ = feats.opacity.shape[0]
+    C, S, L = cfg.chunk, cfg.n_chunks, TILE_PIX
+    dev = tile_gid.device
+    # dtype follows the inputs (float32 in production, float64 in the
+    # reference-oracle tests)
+    dt = feats.opacity.dtype
+    lane = torch.arange(L, dtype=torch.int32, device=dev)
+    pixx = (lane % TILE).to(dt)[None, None, :]
+    pixy = (lane // TILE).to(dt)[None, None, :]
+    org64 = org_xy.to(torch.float64)[:, None, :]  # [T,1,2]
+    hom64, xy64 = feats.hom.to(torch.float64), feats.xy.to(torch.float64)
+    ids_s = tile_gid.reshape(n_tiles, S, C).long()
+    mask_s = tile_mask.reshape(n_tiles, S, C)
+    gk = torch.arange(1, C + 1, dtype=torch.int32, device=dev)[None, :, None]
+
+    z = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    carry = BlendCarry(
+        T=torch.ones((n_tiles, L), dtype=dt, device=dev),
+        done=torch.zeros((n_tiles, L), dtype=torch.bool, device=dev),
+        color=z(n_tiles, L, 3), normal=z(n_tiles, L, 3), depth=z(n_tiles, L),
+        refl=z(n_tiles, L), dist=z(n_tiles, L), m1=z(n_tiles, L), m2=z(n_tiles, L),
+        scope=torch.zeros((n_tiles, L), dtype=torch.bool, device=dev),
+        median_depth=z(n_tiles, L),
+        n_contrib=torch.zeros((n_tiles, L), dtype=torch.int32, device=dev),
+        median_idx=torch.zeros((n_tiles, L), dtype=torch.int32, device=dev),
+        gw=z(P_),
+    )
+    grad = torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in feats)
+
+    def body(ids, vmask, gk_base, *c):
+        return _chunk(feats, hom64, xy64, org64, pixx, pixy, gk_base, c, ids, vmask)
+
+    for s in range(S):
+        args = (ids_s[:, s], mask_s[:, s], gk + s * C, *carry)
+        if grad:
+            # the backward recomputes the chunk (JAX: jax.checkpoint(body))
+            out = checkpoint(body, *args, use_reentrant=False)
+        else:
+            out = body(*args)
+        carry = BlendCarry(*out)
+    return carry
+
+
+def blend(
+    tile_gid: torch.Tensor,  # [T, K]
+    tile_mask: torch.Tensor,  # [T, K]
+    hom: torch.Tensor,  # [P,3,3]
+    xy: torch.Tensor,  # [P,2]
+    opacity: torch.Tensor,  # [P]
+    normal_view: torch.Tensor,  # [P,3]
+    color: torch.Tensor,  # [P,3]
+    refl: torch.Tensor,  # [P]
+    scope_mask: torch.Tensor,  # [P] bool
+    bg: torch.Tensor,  # [3]
+    height: int,
+    width: int,
+    cfg: RasterConfig,
+) -> BlendOutput:
+    """The scan blend on one device (tpu_splat/raster/blend.py:blend
+    without its mesh branch). Differentiable in hom, xy, opacity,
+    normal_view, color and refl; gaussian_weights is detached."""
+    tiles_y, tiles_x = tile_grid(height, width)
+    org = tile_origins(height, width, device=hom.device)
+    feats = GaussFeats(hom=hom, xy=xy, opacity=opacity, normal_view=normal_view,
+                       color=color, refl=refl, scope_mask=scope_mask)
+    final = _blend_scan(tile_gid, tile_mask, org, feats, cfg)
+
+    img = lambda x: _tiles_to_image(x, tiles_y, tiles_x, height, width)
+    out_color = img(final.color + final.T[..., None] * bg[None, None, :])
+    others = torch.cat(
+        [
+            img(final.depth)[..., None],
+            img(1.0 - final.T)[..., None],
+            img(final.normal),
+            img(final.median_depth)[..., None],
+            img(final.dist)[..., None],
+            img(final.scope.to(final.T.dtype))[..., None],
+        ],
+        dim=-1,
+    )
+    return BlendOutput(
+        color=out_color,
+        others=others,
+        refl_map=img(final.refl),
+        final_T=img(final.T),
+        n_contrib=img(final.n_contrib),
+        gaussian_weights=final.gw.detach(),
+    )

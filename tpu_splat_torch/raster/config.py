@@ -4,10 +4,23 @@ Port of `tpu_splat/raster/config.py`. The capacities and truncation
 semantics are kept as they are in the JAX package (static `max_instances`,
 `pad_per_tile`), so the two packages produce identical instance layouts.
 
-`backend`: "auto" (and "pallas", kept so configs spell the same in both
-packages) selects the tile-kernel path: the CUDA kernel for CUDA tensors,
-its plain PyTorch version for CPU tensors. "xla", the JAX scan blend, is not
-ported and raises NotImplementedError when a frame is rasterized.
+`backend`:
+- "auto" and "pallas" (kept so configs spell the same in both packages)
+  select the tile-kernel path: the 128-aligned instance layout and the
+  CUDA kernel pair for CUDA tensors, their plain PyTorch versions for CPU
+  tensors.
+- "xla" selects the scan blend (`raster/blend.py:blend`): the dense
+  per-tile `[T, tile_depth]` layout consumed `chunk` instances at a time by
+  chunked prefix products, in plain PyTorch on whatever device the tensors
+  are on, differentiated by autograd. Per-tile lists are truncated at
+  `tile_depth` (`check_growth` grows it from `max_tile_count`).
+  `bf16_feats`, `bf16_grads` and `grad_channels` do not apply to it: it
+  blends and differentiates every channel in the inputs' dtype, as the JAX
+  scan does.
+Departure from the JAX package: there "auto" resolves to the XLA scan off a
+TPU (tpu_splat/raster/config.py:use_pallas). Here "auto" always means the
+tile kernel, which is the production path on the card and the tested path
+on the CPU; the scan is taken only when asked for by name.
 """
 from __future__ import annotations
 
@@ -38,7 +51,7 @@ class RasterConfig:
     tile_depth: int = 1024
     chunk: int = 32
     depth_ratio: float = 0.0
-    backend: str = "auto"  # "auto" | "pallas" (tile kernel) | "xla" (not ported)
+    backend: str = "auto"  # "auto" | "pallas" (tile kernel) | "xla" (scan blend)
     grad_channels: str = "full"  # "full" | "train" (train-shaped kernel)
     bf16_grads: bool = False
     bf16_feats: bool = False  # bf16-pair content rows in the instance slab
@@ -47,7 +60,7 @@ class RasterConfig:
     pad_per_tile: int = 128  # per-tile pad budget of the 128-aligned layout
     opacity_rect: bool = False  # opacity-aware tile rect (output-exact)
     circular_rect: bool = False  # reference-exact circular tile rect
-    expand_mode: str = "gather"  # "gather" | "kernel" (run_expand); "scan" not ported
+    expand_mode: str = "gather"  # "gather" | "scan" (runs as "gather") | "kernel" (run_expand)
 
     def __post_init__(self):
         assert self.tile_depth % self.chunk == 0
@@ -61,6 +74,10 @@ class RasterConfig:
             )
         if self.bf16_feats:
             assert self.bf16_grads, "bf16_feats requires bf16_grads"
+
+    def use_kernel(self) -> bool:
+        """The tile-kernel path ("auto", "pallas"), not the scan blend."""
+        return self.backend != "xla"
 
     @property
     def n_chunks(self) -> int:

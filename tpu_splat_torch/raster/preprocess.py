@@ -133,10 +133,15 @@ def preprocess(
     colors: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
     screen_offset: torch.Tensor | None = None,
+    hom_precomp: torch.Tensor | None = None,
     opacity: torch.Tensor | None = None,
     circular_rect: bool = False,
 ) -> Preprocessed:
     """Vectorized preprocess over all P Gaussians.
+
+    `hom_precomp` [P,3,3] replaces the homography built from scales and
+    rotations (the reference's transMat_precomp); the view normal is then
+    +z, untransformed, as in the JAX package (reference forward.cu:207).
 
     `screen_offset` [P,2] is the densify probe: added to the homography's
     pixel-translation entries scaled by (W/2, H/2) and the depth T[2][2].
@@ -148,13 +153,20 @@ def preprocess(
 
     # the view transform and the sums below as the JAX package's jitted CPU
     # code rounds them (fma chains), with the same bits on every device
-    hom, normal_world = compute_homography(
-        means3d, scales, rotations, camera_full_proj, height, width, scale_modifier
-    )
-    views = f32.fma_sum(torch.stack([means3d, normal_world], -2)[..., None, :],
-                        camera_world_view[:3, :3])  # [P, 2, 3]
-    p_view = views[:, 0] + camera_world_view[:3, 3]
-    normal_view = views[:, 1]
+    if hom_precomp is not None:
+        hom = hom_precomp
+        p_view = f32.fma_sum(means3d[..., None, :], camera_world_view[:3, :3])
+        p_view = p_view + camera_world_view[:3, 3]
+        normal_view = torch.zeros_like(means3d)
+        normal_view[..., 2] = 1.0
+    else:
+        hom, normal_world = compute_homography(
+            means3d, scales, rotations, camera_full_proj, height, width, scale_modifier
+        )
+        views = f32.fma_sum(torch.stack([means3d, normal_world], -2)[..., None, :],
+                            camera_world_view[:3, :3])  # [P, 2, 3]
+        p_view = views[:, 0] + camera_world_view[:3, 3]
+        normal_view = views[:, 1]
     in_front = p_view[..., 2] > NEAR_N  # auxiliary.h:189-214 near culling
 
     # DUAL_VISIABLE: flip normal toward camera (forward.cu:211-216)

@@ -209,6 +209,7 @@ def training(args, argv_namespace=None, device: str = "cuda"):
                     cfg,
                     n_alive=int(aux.n_alive),
                     num_instances=int(aux.num_instances),
+                    max_tile_count=int(aux.max_tile_count),
                     densify_overflow=log.overflowed - prev_overflow,
                     pad_overflow=int(aux.pad_overflow),
                 )

@@ -5,8 +5,9 @@ and of torch's parameter resize on densify).
 Capacities are static, as in the JAX package: "allocation" pads every
 capacity-sized leaf (Gaussian rows, Adam moments, densify statistics) to a
 larger capacity and bumps the RasterConfig. The overflow diagnostics every
-step reports (n_alive, num_instances, densify overflow, pad overflow)
-decide when; growth is geometric, so it happens O(log) times in a run.
+step reports (n_alive, num_instances, max_tile_count, densify overflow,
+pad overflow) decide when; growth is geometric, so it happens O(log) times
+in a run.
 """
 from __future__ import annotations
 
@@ -70,6 +71,7 @@ def check_growth(
     cfg: RasterConfig,
     n_alive: int,
     num_instances: int,
+    max_tile_count: int,
     densify_overflow: int,
     pad_overflow: int = 0,
     headroom: float = 0.9,
@@ -77,9 +79,10 @@ def check_growth(
 ) -> GrowthDecision:
     """Grow whatever is (nearly) full. Host control flow on host integers,
     called between steps (after a densify overflow and every 100
-    iterations, as the trainer does). The JAX package's `max_tile_count`
-    rule is left out: it grows only its scan blend's `tile_depth`, which is
-    not ported (the tile kernel's ranges are bounded by max_instances)."""
+    iterations, as the trainer does). `max_tile_count` (the most instances
+    one tile holds) grows `tile_depth` on the scan blend (backend="xla")
+    only: it truncates each tile's list there, while the tile kernels'
+    aligned ranges are bounded by max_instances alone."""
     reasons = []
     new_ts, new_cfg = ts, cfg
 
@@ -102,6 +105,9 @@ def check_growth(
                 max(cfg.max_columns * factor, changes["max_instances"]), RUN_DECODE_BLK
             )
             reasons.append(f"max_columns {cfg.max_columns} -> {changes['max_columns']}")
+    if max_tile_count > cfg.tile_depth and not cfg.use_kernel():
+        changes["tile_depth"] = _round_up(max_tile_count * factor, cfg.chunk)
+        reasons.append(f"tile_depth {cfg.tile_depth} -> {changes['tile_depth']}")
     if pad_overflow > 0 and cfg.pad_per_tile < 128:
         # budgeted pad capacity overflowed: escalate to the exact worst case
         changes["pad_per_tile"] = 128
