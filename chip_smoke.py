@@ -72,10 +72,27 @@ training step (rows beyond tolerance no more, and by no more, than a
 jitter of the kernel path's own blend outputs moves); 11c the
 bench view's binning under expand_mode="scan" against "gather", every
 field; 11d the brute-force oracle at 48x48 against the kernel frame.
+Phase 12 drives multi-GPU training (`tpu_splat_torch/dist/`) on 6c's load
+(the bench cloud, the trainer's cubemap, the ISP, the deferred stage) at
+1088x1920: 12a the tile-sharded step (`make_train_step(mesh=...)`) and the
+camera-DP step (`make_train_step_dp`) over one NCCL rank in this process
+against the unsharded step (the frame, n_contrib and every gradient, with
+which leaves are bit equal), timed; 12b two ranks started by
+`tpu_splat_torch.dist.launch` (over gloo sharing the card, or over NCCL on
+two cards): each rank's slab of the frame against the unsharded frame,
+its instance count (the ranks' sum against the unsharded count), the
+tile-sharded step's gradients against the unsharded step's, the DP step
+of two cameras against the mean of two single-camera steps (loss,
+gradients, densify sums), the replicas' hashes after each step and after a
+densify event, the gradient all-reduce and slab gather ms, each rank's
+peak memory and launches; 12c the train CLI with `--mesh tiles` and
+`--mesh dp` (`--mesh_devices 0`: one rank a card, started by the CLI) for
+30 iterations of phase 8's scene, the files only rank 0 writes loaded back.
 Each phase prints one line a step; every failed check raises,
 so the exit code is not 0. Details go to
 chiprun_out/chip_smoke.json. The last four lines are phases 9 and 10's
-forward launches by step and phase 11's volumetric fwd+bwd launches, the kernels' JSON record (launches over the 4 timed
+forward launches by step, phase 11's volumetric fwd+bwd launches and phase
+12's per-rank step launches, the kernels' JSON record (launches over the 4 timed
 tight training steps), the card's name and power limit as nvidia-smi
 reports them, and the result line.
 
@@ -256,6 +273,30 @@ P11_FLIP_SHARE = 2.0 / 255.0  # one accept flip at alpha = 1/255: its own weight
 P11_JITTER = 2.0**-18
 P11_BF_N, P11_BF_HW = 120, 48  # 11d: the brute-force oracle's scene
 P11_SCAN_FIRST_DEPTH = 512  # 11b's first frame, before check_growth sizes tile_depth
+
+# multi-GPU (slice 10): the tile-sharded step (make_train_step(mesh=...)) and
+# the camera-DP step (make_train_step_dp) on the 6c load (the bench cloud,
+# the trainer's cubemap, the ISP, the deferred stage) at full width; 12a one
+# rank over NCCL in this process, 12b two ranks sharing the card over gloo
+# (NCCL takes one rank a card; over NCCL on separate cards where there are
+# two), 12c the train CLI's --mesh tiles|dp on phase 8's scene
+P12_RANKS = 2
+P12_TIMED = 3  # timed steps of each kind after a warm-up
+P12_IMG_TOL = 2e-5  # the assembled frame against the unsharded one, absolute
+P12_GW_TOL = 1e-6  # gaussian_weights, absolute
+P12_GRAD_TOL = 1e-3  # 12b: each gradient leaf, of its max |g| (two ranks sum in another order)
+# 12a: env_texture's gradient, of its max: the cubemap kernel's float atomics
+# alone (two unsharded runs differ by 3.3e-7 to 6.0e-7 on the H100; the bound
+# leaves ~7x of that); every other leaf is held bit-equal
+P12_ENV_TOL = 4e-6
+P12_LOSS_RTOL = 1e-5
+P12_STAT_TOL = 1e-6  # the DP densify sums, of each field's max
+P12_DENSIFY_AT = 1000  # an iteration whose scheduled events densify (train/loop.py)
+P12_EXTENT = 6.6  # cameras_extent of the bench orbit (radius 6 x 1.1, as Scene takes it)
+P12_CLI_ARGS = ["-r", "1", "--eval", "--disable_viewer", "-q", "--max_tiles_per_gaussian", "32",
+                "--max_instances", "3981312", "--tile_depth", "2048", "--iterations", "30",
+                "--init_until_iter", "10", "--test_iterations", "30", "--save_iterations", "30",
+                "--checkpoint_iterations", "30", "--mesh_devices", "0"]
 
 
 def log(phase: str, **kv) -> None:
@@ -2128,15 +2169,16 @@ def patched_blend(dtype=None, record=None):
     import tpu_splat_torch.raster as rp
     from tpu_splat_torch.raster.blend import BlendOutput, blend
 
-    def wrapped(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg):
+    def wrapped(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg, **kw):
         if record is not None:
             record.append(dict(tile_gid=tile_gid, tile_mask=tile_mask, hom=hom.detach(),
                                xy=xy.detach(), opacity=opa.detach(), cfg=cfg, size=(h, w)))
         if dtype is None:
-            return blend(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg)
+            return blend(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg,
+                         **kw)
         dt0 = hom.dtype
         up = [t.to(dtype) for t in (hom, xy, opa, nrm, col, refl)]
-        o = blend(tile_gid, tile_mask, *up, scope, bg.to(dtype), h, w, cfg)
+        o = blend(tile_gid, tile_mask, *up, scope, bg.to(dtype), h, w, cfg, **kw)
         return BlendOutput(**{k: (v.to(dt0) if v.is_floating_point() else v)
                               for k, v in o._asdict().items()})
 
@@ -2625,6 +2667,358 @@ def phase11_modes(dev, detail, views, fwd_libs):
     p11["bruteforce"] = bf_res
     del state
     return launched
+
+
+def p12_sizes() -> dict:
+    """Phase 12's load, handed to its ranks (which import this file anew)."""
+    return dict(h=H, w=W, n=N_GAUSS, capacity=CAPACITY, prod=PROD, cubemap=TRAIN_CUBEMAP)
+
+
+def p12_load(dev, sz):
+    """6c's load: (opt, TrainState in the deferred stage, ISPConfig, config,
+    views 0 and 1 of the bench orbit, their ground truth, bg)."""
+    import torch
+
+    from tpu_splat_torch.data.synthetic import orbit_camera
+    from tpu_splat_torch.raster.config import production_config
+
+    state = build_state(sz["n"], sz["capacity"], cubemap=sz["cubemap"], device=dev)
+    opt, ts, isp = train_start(state, N_VIEWS)
+    views = [orbit_camera(sz["h"], sz["w"], radius=6.0, azimuth=0.4 + k * math.pi / 2,
+                          elevation=0.3, device=dev) for k in range(P12_RANKS)]
+    gts = [torch.rand((sz["h"], sz["w"], 3), generator=torch.Generator().manual_seed(1 + k))
+           .to(dev) for k in range(P12_RANKS)]
+    return opt, ts, isp, production_config(**sz["prod"]), views, gts, torch.zeros(3, device=dev)
+
+
+def p12_frame(state, cam, bg, mesh, sz):
+    """The rasterizer's frame of the production switches with every channel
+    (n_contrib among them), unsharded or over `mesh`."""
+    import torch
+
+    from tpu_splat_torch.raster import rasterize
+    from tpu_splat_torch.raster.config import production_config
+
+    cfg = production_config(grad_channels="full", **sz["prod"])
+    with torch.no_grad():
+        return rasterize(state.xyz, state.get_scaling(), state.rotation, state.get_opacity(),
+                         state.get_refl(), cam, bg, cfg, sh=state.get_features(),
+                         sh_degree=state.max_sh_degree, alive=state.alive, mesh=mesh)
+
+
+def p12_leaf_errs(got: dict, want: dict) -> dict:
+    """Each leaf's largest difference over its largest |value|."""
+    out = {}
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        d = float((got[k] - w).abs().max())
+        out[k] = d / scale if scale else d
+    return out
+
+
+def p12_hash(ts) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(ts.gaussians.param_pytree().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    h.update(ts.gaussians.alive.cpu().numpy().tobytes())
+    for k in sorted(ts.opt.mu):
+        h.update(ts.opt.mu[k].cpu().numpy().tobytes() + ts.opt.nu[k].cpu().numpy().tobytes())
+    for x in ts.stats:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def p12_timed(fn, dev, reps=P12_TIMED):
+    """fn() once to warm up, then `reps` host-clock runs ending in a
+    synchronize; -> (median ms, the last result, the launches and the stage
+    ms (CUDA events; none off the card) of the first timed run)."""
+    import torch
+
+    from tpu_splat_torch.core.device import record_stages
+    from tpu_splat_torch.kernels import LAUNCHES
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timed():
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    fn()
+    LAUNCHES.clear()
+    with record_stages() if on_card else contextlib.nullcontext({}) as stages:
+        first, out = timed()
+    launches = dict(LAUNCHES)
+    times = [first] + [timed()[0] for _ in range(reps - 1)]
+    return float(np.median(times)), out, launches, dict(stages)
+
+
+def phase12a_one_rank(dev, detail, sz, backend="nccl"):
+    """12a: the tile-sharded and DP steps over one NCCL rank in this
+    process, against the unsharded step from the same state: bit for bit
+    but env_texture's gradient, held to two unsharded runs' atomics gap."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_splat_torch.dist import make_mesh
+    from tpu_splat_torch.train.step import make_train_step, make_train_step_dp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            opt, ts, isp, cfg, views, gts, bg = p12_load(dev, sz)
+            single = make_train_step(opt, cfg, 1.0, isp_cfg=isp)
+            tiles = make_train_step(opt, cfg, 1.0, isp_cfg=isp, mesh=make_mesh(1, "tiles"))
+            dp = make_train_step_dp(opt, cfg, 1.0, make_mesh(1, "dp"), isp_cfg=isp)
+            runs = {
+                "single": lambda: single(ts, views[0], gts[0], bg, frame_idx=0),
+                "tiles": lambda: tiles(ts, views[0], gts[0], bg, frame_idx=0),
+                "dp": lambda: dp(ts, views[:1], gts[:1], bg, frame_idx=[0]),
+            }
+            res = {name: p12_timed(fn, dev) for name, fn in runs.items()}
+            _, s_again = runs["single"]()
+            f1 = p12_frame(ts.gaussians, views[0], bg, None, sz)
+            ft = p12_frame(ts.gaussians, views[0], bg, make_mesh(1, "tiles"), sz)
+        finally:
+            dist.destroy_process_group()
+    (_, (s_new, s_aux), _, _) = res["single"]
+    # with one rank the slab is the whole image and every collective the
+    # identity: the frame, the loss, the render, the densify statistics and
+    # every gradient leaf but env_texture are held bit for bit
+    env_atomics = p12_leaf_errs({"env_texture": s_again.grads["env_texture"]},
+                                {"env_texture": s_aux.grads["env_texture"]})["env_texture"]
+    del s_again
+    out = dict(frame=dict(color_equal=bool(torch.equal(f1.color, ft.color)),
+                          n_contrib_equal=bool(torch.equal(f1.n_contrib, ft.n_contrib)),
+                          gw_equal=bool(torch.equal(f1.gaussian_weights, ft.gaussian_weights)),
+                          instances=(int(f1.num_instances), int(ft.num_instances))),
+               env_texture_two_unsharded_runs=env_atomics)
+    if not (out["frame"]["color_equal"] and out["frame"]["n_contrib_equal"]
+            and out["frame"]["gw_equal"]
+            and out["frame"]["instances"][0] == out["frame"]["instances"][1]):
+        raise AssertionError(f"12a: the one-rank sharded frame departs: {out['frame']}")
+    if env_atomics > P12_ENV_TOL:
+        raise AssertionError(f"12a: two unsharded steps' env_texture gradients differ by "
+                             f"{env_atomics:.3g} of its max, past P12_ENV_TOL")
+    for name, (ms, (new, aux), launches, stages) in res.items():
+        rec = dict(step_ms=ms, launches=launches, loss=float(aux.loss),
+                   stages_ms={k: round(v, 3) for k, v in stages.items()})
+        missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) < 1]
+        if missing and dev.type == "cuda":
+            raise AssertionError(f"12a {name}: kernels not launched: {missing}")
+        if name != "single":
+            errs = p12_leaf_errs(aux.grads, s_aux.grads)
+            bits = {k: bool(torch.equal(aux.grads[k], g)) for k, g in s_aux.grads.items()}
+            stats_bits = all(bool(torch.equal(a, b)) for a, b in zip(new.stats, s_new.stats))
+            rec.update(loss_equal=bool(torch.equal(aux.loss, s_aux.loss)),
+                       render_equal=bool(torch.equal(aux.render, s_aux.render)),
+                       grads_bit_equal=sorted(k for k, v in bits.items() if v),
+                       grads_apart={k: errs[k] for k, v in bits.items() if not v},
+                       stats_bit_equal=stats_bits)
+            apart = set(rec["grads_apart"]) - {"env_texture"}
+            if (not rec["loss_equal"] or not rec["render_equal"] or not stats_bits or apart
+                    or errs["env_texture"] > P12_ENV_TOL):
+                raise AssertionError(f"12a {name}: departs from the unsharded step: {rec}")
+        out[name] = rec
+        log(f"12a one rank, {backend}", step=name, ms=f"{ms:.2f}", loss=f"{float(aux.loss):.6f}",
+            env_texture_two_unsharded_runs=f"{env_atomics:.3g}",
+            **{k: json.dumps(v).replace(" ", "") for k, v in rec.items()
+               if k in ("loss_equal", "render_equal", "grads_apart", "stats_bit_equal")})
+    detail["phase12a"] = out
+    return out
+
+
+def phase12b_rank(rank: int, n: int, sz: dict) -> dict:
+    """12b, one rank (started by tpu_splat_torch.dist.launch): the frame and
+    the tile-sharded step against the unsharded ones, the DP step of n
+    cameras against the mean of n single-camera steps, then a densify
+    event; -> numbers and hashes (the parent compares the ranks)."""
+    import torch
+
+    from tpu_splat_torch.dist import make_mesh
+    from tpu_splat_torch.train.loop import EventLog, run_scheduled_events
+    from tpu_splat_torch.train.step import make_train_step, make_train_step_dp
+
+    on_card = torch.cuda.is_available()
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    opt, ts, isp, cfg, views, gts, bg = p12_load(dev, sz)
+    mesh_t, mesh_d = make_mesh(n, "tiles"), make_mesh(n, "dp")
+    out = dict(rank=rank, device=str(dev))
+
+    f1 = p12_frame(ts.gaussians, views[0], bg, None, sz)
+    fs = p12_frame(ts.gaussians, views[0], bg, mesh_t, sz)
+    tiles_y, tiles_x = -(-sz["h"] // 16), -(-sz["w"] // 16)
+    rh = -(-tiles_y // n)
+    per_rank = [int(fs.tile_counts[k * rh * tiles_x:(k + 1) * rh * tiles_x].sum())
+                for k in range(n)]
+    out["frame"] = dict(
+        color_err=float((fs.color - f1.color).abs().max()),
+        n_contrib_equal=bool(torch.equal(fs.n_contrib, f1.n_contrib)),
+        gw_err=float((fs.gaussian_weights - f1.gaussian_weights).abs().max()),
+        instances_single=int(f1.num_instances), instances_per_rank=per_rank,
+        instances_global_units=int(fs.num_instances))
+    del f1, fs
+
+    single = make_train_step(opt, cfg, 1.0, isp_cfg=isp)
+    tiles = make_train_step(opt, cfg, 1.0, isp_cfg=isp, mesh=mesh_t)
+    s_ms, (s_new, s_aux), _, _ = p12_timed(
+        lambda: single(ts, views[0], gts[0], bg, frame_idx=0), dev)
+    t_ms, (t_new, t_aux), t_launch, t_stages = p12_timed(
+        lambda: tiles(ts, views[0], gts[0], bg, frame_idx=0), dev)
+    out["tiles"] = dict(
+        step_ms=t_ms, single_step_ms=s_ms, launches=t_launch,
+        stages_ms={k: round(v, 3) for k, v in t_stages.items()},
+        loss=(float(s_aux.loss), float(t_aux.loss)),
+        render_err=float((t_aux.render - s_aux.render).abs().max()),
+        grad_errs=p12_leaf_errs(t_aux.grads, s_aux.grads), hash=p12_hash(t_new))
+    del t_new, t_aux
+
+    dp = make_train_step_dp(opt, cfg, 1.0, mesh_d, isp_cfg=isp)
+    d_ms, (d_new, d_aux), d_launch, d_stages = p12_timed(
+        lambda: dp(ts, views, gts, bg, frame_idx=list(range(n))), dev)
+    singles = [(s_new, s_aux)] + [single(ts, views[k], gts[k], bg, frame_idx=k)
+                                  for k in range(1, n)]
+    mean_g = {k: sum(a.grads[k] for _, a in singles) / n for k in d_aux.grads
+              if k != "screen_offset"}
+    stats = [s.stats for s, _ in singles]
+    want = dict(grad_accum=sum(x.grad_accum for x in stats), denom=sum(x.denom for x in stats),
+                accum_w=sum(x.accum_w for x in stats), denom_w=sum(x.denom_w for x in stats),
+                max_radii=torch.stack([x.max_radii for x in stats]).amax(0))
+    stat_errs = {}
+    for f, w in want.items():
+        scale = float(w.abs().max())
+        stat_errs[f] = float((getattr(d_new.stats, f) - w).abs().max()) / (scale or 1.0)
+    log_ = EventLog()
+    ev = run_scheduled_events(d_new, P12_DENSIFY_AT, opt, cameras_extent=P12_EXTENT,
+                              cameras_mean=np.zeros(3, np.float32), log=log_)
+    out["dp"] = dict(
+        step_ms=d_ms, launches=d_launch, stages_ms={k: round(v, 3) for k, v in d_stages.items()},
+        loss=float(d_aux.loss), mean_single_loss=float(sum(float(a.loss) for _, a in singles) / n),
+        grad_errs=p12_leaf_errs({k: d_aux.grads[k] for k in mean_g}, mean_g),
+        stat_errs=stat_errs, hash_adam=p12_hash(d_new), hash_densify=p12_hash(ev),
+        densify=dict(densified=log_.densified, pruned=log_.pruned,
+                     alive=(int(d_new.gaussians.alive.sum()), int(ev.gaussians.alive.sum()))))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    return out
+
+
+def phase12b_ranks(detail, sz):
+    """12b: P12_RANKS ranks on the card(s); every rank's numbers held, and
+    the ranks' states against each other."""
+    import torch
+
+    from tpu_splat_torch.dist import launch
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= P12_RANKS else "gloo"
+    mode = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    ranks = launch(phase12b_rank, P12_RANKS, args=(P12_RANKS, sz), backend=backend)
+    wall_s = time.perf_counter() - t0
+    label = ("two ranks on separate cards over nccl" if backend == "nccl" else
+             "two ranks sharing one card over gloo: not a speed measurement")
+    log("12b ranks", backend=backend, cards=n_cards, compute_mode=repr(mode), seconds=f"{wall_s:.1f}",
+        timing=repr(label))
+    for r in ranks:
+        f, t, d = r["frame"], r["tiles"], r["dp"]
+        log("12b rank", rank=r["rank"], device=r["device"], peak_gib=f"{r['peak_gib']:.2f}",
+            instances=json.dumps(f["instances_per_rank"]).replace(" ", ""),
+            single=f["instances_single"], color_err=f"{f['color_err']:.3g}",
+            n_contrib_equal=f["n_contrib_equal"], gw_err=f"{f['gw_err']:.3g}")
+        log("12b rank", rank=r["rank"], tiles_ms=f"{t['step_ms']:.2f}",
+            single_ms=f"{t['single_step_ms']:.2f}", dp_ms=f"{d['step_ms']:.2f}",
+            grad_allreduce_ms=f"{t['stages_ms'].get('grad_allreduce', 0.0):.2f}",
+            slab_gather_ms=f"{t['stages_ms'].get('slab_gather', 0.0):.2f}",
+            dp_allreduce_ms=f"{d['stages_ms'].get('grad_allreduce', 0.0):.2f}",
+            tiles_grad_err=f"{max(t['grad_errs'].values()):.3g}",
+            dp_grad_err=f"{max(d['grad_errs'].values()):.3g}",
+            dp_loss=f"{d['loss']:.6f}", mean_single_loss=f"{d['mean_single_loss']:.6f}",
+            densify=json.dumps(d["densify"]).replace(" ", ""),
+            launches=json.dumps({"tiles": t["launches"], "dp": d["launches"]}).replace(" ", ""))
+        if sum(f["instances_per_rank"]) != f["instances_single"] or not f["n_contrib_equal"] \
+                or f["color_err"] > P12_IMG_TOL or f["gw_err"] > P12_GW_TOL:
+            raise AssertionError(f"12b rank {r['rank']}: the sharded frame departs: {f}")
+        a, b = t["loss"]
+        if abs(a - b) > P12_LOSS_RTOL * abs(a) or t["render_err"] > P12_IMG_TOL \
+                or max(t["grad_errs"].values()) > P12_GRAD_TOL:
+            raise AssertionError(f"12b rank {r['rank']}: the tile-sharded step departs: {t}")
+        if abs(d["loss"] - d["mean_single_loss"]) > P12_LOSS_RTOL * abs(d["mean_single_loss"]) \
+                or max(d["grad_errs"].values()) > P12_GRAD_TOL \
+                or max(d["stat_errs"].values()) > P12_STAT_TOL:
+            raise AssertionError(f"12b rank {r['rank']}: the DP step departs: {d}")
+        for kind in ("tiles", "dp"):
+            missing = [k for k in TRAIN_KERNELS if r[kind]["launches"].get(k, 0) < 1]
+            if missing and r["device"].startswith("cuda"):
+                raise AssertionError(f"12b rank {r['rank']} {kind}: not launched: {missing}")
+    for key in (("tiles", "hash"), ("dp", "hash_adam"), ("dp", "hash_densify")):
+        hashes = {r[key[0]][key[1]] for r in ranks}
+        if len(hashes) != 1:
+            raise AssertionError(f"12b: the replicas part after {key}: {hashes}")
+    dens = ranks[0]["dp"]["densify"]
+    if not (dens["densified"] or dens["pruned"]):
+        raise AssertionError(f"12b: the densify event changed nothing: {dens}")
+    log("12b replicas", identical_after=["tiles step", "dp adam", "dp densify"],
+        hashes=json.dumps({"tiles": ranks[0]["tiles"]["hash"],
+                           "dp": ranks[0]["dp"]["hash_adam"],
+                           "densify": ranks[0]["dp"]["hash_densify"]}).replace(" ", ""))
+    detail["phase12b"] = dict(backend=backend, compute_mode=mode, cards=n_cards,
+                              seconds=wall_s, label=label, ranks=ranks)
+    return {f"rank{r['rank']}": {k: r[k]["launches"] for k in ("tiles", "dp")} for r in ranks}
+
+
+def phase12c_cli(dev, detail):
+    """12c: the train CLI with --mesh tiles and --mesh dp on phase 8's scene;
+    the CLI starts one rank a card itself. Only rank 0 writes, the same
+    files a one-device run writes, and they load in the port."""
+    import torch
+
+    from tpu_splat_torch.model.io import load_checkpoint, load_ply
+    from tpu_splat_torch.scripts import train as cli
+
+    scene_dir = os.path.join(P8_DIR, "scene")
+    ply = os.path.join("point_cloud", "iteration_30", "point_cloud")
+    expect = sorted(["cameras.json", "cfg_args", "chkpnt30.npz", "training_report.jsonl",
+                     ply + ".ply", ply + ".map", ply + ".map.npz"])
+    out = {}
+    for mode in ("tiles", "dp"):
+        model_dir = os.path.join(P8_DIR, f"mesh_{mode}")
+        t0 = time.perf_counter()
+        ts = cli.main(["-s", scene_dir, "-m", model_dir, *P12_CLI_ARGS, "--mesh", mode],
+                      device=str(dev))
+        secs = time.perf_counter() - t0
+        files = sorted(os.path.relpath(os.path.join(d, f), model_dir)
+                       for d, _, names in os.walk(model_dir) for f in names)
+        if files != expect or ts.step != 30:
+            raise AssertionError(f"12c --mesh {mode}: step {ts.step}, files {files}")
+        g = ts.gaussians
+        back = load_ply(os.path.join(model_dir, ply + ".ply"), device=dev)
+        alive = g.alive
+        n_alive = int(alive.sum())
+        ply_equal = all(bool(torch.equal(getattr(back, f)[:n_alive], getattr(g, f)[alive]))
+                        for f in ("xyz", "features_dc", "scaling", "rotation", "opacity", "refl"))
+        ck, it = load_checkpoint(os.path.join(model_dir, "chkpnt30.npz"), ts)
+        ck_equal = it == 30 and all(bool(torch.equal(a, b)) for a, b in zip(
+            ck.gaussians.param_pytree().values(), g.param_pytree().values()))
+        if not (ply_equal and ck_equal):
+            raise AssertionError(f"12c --mesh {mode}: PLY {ply_equal}, checkpoint {ck_equal}")
+        out[mode] = dict(seconds=secs, files=len(files), ply_equal=ply_equal,
+                         checkpoint_equal=ck_equal, alive=int(alive.sum()))
+        log("12c cli", mesh=mode, ranks=torch.cuda.device_count(), seconds=f"{secs:.1f}",
+            files=len(files), ply_equal=ply_equal, checkpoint_equal=ck_equal)
+    detail["phase12c"] = out
 
 
 def main() -> int:
@@ -3396,6 +3790,12 @@ def main() -> int:
         phase8_train_from_disk(state, dev, detail)
         eval_launches = phase9_evaluate(state, dev, detail)
         mesh_launches = phase10_mesh_and_viewer(state, dev, detail)
+        # 12. multi-GPU (slice 10); 12c trains on phase 8's scene
+        torch.cuda.empty_cache()
+        phase12a_one_rank(dev, detail, p12_sizes())
+        torch.cuda.empty_cache()
+        p12_launches = phase12b_ranks(detail, p12_sizes())
+        phase12c_cli(dev, detail)
     finally:
         # a trainer's failure snapshot (scripts/train.py) outlives the files
         for root, _, names in os.walk(P8_DIR):
@@ -3463,7 +3863,8 @@ def main() -> int:
     log("done", seconds=f"{detail['seconds']:.1f}")
     print(json.dumps({"phase9_launches": {"tile_blend_forward": eval_launches},
                       "phase10_launches": {"tile_blend_forward": mesh_launches},
-                      "phase11_volumetric_launches": vol_launches}))
+                      "phase11_volumetric_launches": vol_launches,
+                      "phase12_launches_per_rank": p12_launches}))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

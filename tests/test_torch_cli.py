@@ -3,7 +3,7 @@ iterations on the 32x32 Blender scene of tests/test_scripts.py, with test
 renders, a checkpoint, a PLY snapshot and a resume from the checkpoint;
 then its PLY (with both sidecars), checkpoint and cfg_args load in the JAX
 package, bit equal to the state the CLI returned. Rect and --tight_culling
-binning both run.
+binning both run, and `--mesh tiles|dp` over two gloo ranks.
 """
 import json
 import os
@@ -168,9 +168,61 @@ def test_cli_serves_the_viewer_while_training(run, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("mesh", ["tiles", "dp"])
-def test_cli_mesh_not_ported(run, tmp_path, mesh):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        _run(run["src"], str(tmp_path / "m"), "--mesh", mesh)
+def test_cli_mesh_not_ported(run, tmp_path, mesh, capfd):
+    """--mesh tiles|dp (the name is from when the port refused both; they
+    now run, and the test keeps its name): the CLI starts two gloo
+    ranks for three iterations. Rank 0 alone writes, and writes the files a
+    one-device run writes; its PLY and checkpoint load in both packages, bit
+    equal to the state it returns."""
+    out = str(tmp_path / "m")
+    ts = _run(run["src"], out, "--disable_viewer", "--iterations_override", "3",
+              "--test_iterations", "99", "--checkpoint_iterations", "3", "--mesh", mesh,
+              "--mesh_devices", "2")
+    text = capfd.readouterr().out
+    assert text.count(f"mesh: {mesh} over 2 devices") == 1
+    assert text.count("Training complete") == 1 and text.count("Saving Checkpoint") == 1
+    assert ts.step == 3 and ts.opt.count == 3
+    files = sorted(os.path.relpath(os.path.join(d, f), out)
+                   for d, _, names in os.walk(out) for f in names)
+    ply = os.path.join("point_cloud", "iteration_3", "point_cloud")
+    assert files == sorted(["cameras.json", "cfg_args", "chkpnt3.npz",
+                            ply + ".map", ply + ".map.npz", ply + ".ply"])
+    g = ts.gaussians
+    alive = _host(g.alive)
+    j = jio.load_ply(os.path.join(out, ply + ".ply"))
+    for f in ("xyz", "features_dc", "scaling", "rotation", "opacity", "refl"):
+        np.testing.assert_array_equal(np.asarray(getattr(j, f)), _host(getattr(g, f))[alive], f)
+    pts = np.zeros((300, 3), np.float32)
+    jstate = j_init_from_pcd(pts, pts, capacity=16384, max_sh_degree=3, cubemap_resolution=8)
+    back, it = jio.load_checkpoint(os.path.join(out, "chkpnt3.npz"),
+                                   JTrainState.create(jstate, JOpt(), num_frames=4))
+    assert it == 3 and int(back.step) == 3
+    np.testing.assert_array_equal(np.asarray(back.gaussians.xyz), _host(g.xyz))
+    np.testing.assert_array_equal(np.asarray(back.isp.gain), _host(ts.isp.gain))
+    tback, it = tio.load_checkpoint(os.path.join(out, "chkpnt3.npz"), ts)
+    assert it == 3 and torch.equal(tback.gaussians.rotation, g.rotation)
+    assert torch.equal(tback.opt.nu["xyz"], ts.opt.nu["xyz"])
+
+
+def test_cli_dp_buckets_mixed_camera_sizes():
+    """--mesh dp pads cameras of mixed sizes to the largest, keeping each
+    one's pixels in place, with a loss mask over its own pixels."""
+    from tpu_splat_torch.data.scene import LoadedCamera
+    from tpu_splat_torch.data.synthetic import orbit_camera
+
+    cams = [LoadedCamera(orbit_camera(h, w, radius=4.0, device="cpu"),
+                         torch.rand((h, w, 3)), torch.rand((h, w, 1)), f"c{i}", i)
+            for i, (h, w) in enumerate([(32, 48), (24, 40), (32, 48)])]
+    before = [(lc.image.clone(), lc.camera) for lc in cams]
+    assert tcli._bucket_camera_sizes(cams) == 2
+    for lc, (img, cam) in zip(cams, before):
+        h, w = img.shape[:2]
+        assert (lc.camera.height, lc.camera.width) == lc.image.shape[:2] == (32, 48)
+        assert lc.alpha.shape[:2] == lc.pix_mask.shape[:2] == (32, 48)
+        assert torch.equal(lc.image[:h, :w], img) and lc.image[h:].abs().sum() == 0
+        assert float(lc.pix_mask.sum()) == h * w and float(lc.pix_mask[:h, :w].min()) == 1.0
+        assert torch.equal(lc.camera.world_view, cam.world_view)
+    assert tcli._bucket_camera_sizes(cams[:1]) == 1
 
 
 def test_dump_snapshot_layout_matches_jax(run, tmp_path):

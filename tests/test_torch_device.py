@@ -38,7 +38,9 @@ against their plain versions: the kernel tolerances above. The scan blend
 (backend="xla") on the card against the CPU: the images 2e-5 abs except at
 most 8 pixels per 4096, gradients 1e-3 of each input's max. Binning with
 expand_mode="scan" on the card: every field equal to the CPU's and to
-"gather"'s.
+"gather"'s. The tile-sharded step over two gloo ranks on one card against
+the unsharded step: the loss 1e-5 relative, the image 2e-5, every gradient
+1e-3 of its leaf's max, the ranks' parameters bit-identical.
 """
 import itertools
 import math
@@ -1031,3 +1033,26 @@ def test_scan_expansion_on_card_matches_cpu(aligned):
         got = getattr(out["cuda"], f).cpu()
         assert torch.equal(got, getattr(out["cpu"], f)), f
         assert torch.equal(got, getattr(out["cuda", "gather"], f).cpu()), f
+
+
+@pytest.mark.gpu
+def test_two_ranks_tile_sharded_step_on_the_card():
+    """Two ranks over gloo share the card (NCCL takes one rank a card): each
+    runs the four kernels of the step on its slab."""
+    _need_card()
+    import torch_dist_worker  # beside this file (an installed `tests` package may shadow it)
+
+    from tpu_splat_torch.dist import launch
+
+    build.build_all()  # once here: the ranks load the libraries
+    results = launch(torch_dist_worker.card_sharded_step, 2, args=(2,), backend="gloo")
+    for res in results:
+        a, b = res["loss"]
+        assert abs(a - b) <= 1e-5 * abs(a), res["loss"]
+        assert res["render_err"] <= 2e-5, res["render_err"]
+        bad = {k: e for k, e in res["grad_err"].items() if e > 1e-3}
+        assert not bad, bad
+        for k in ("tile_blend_forward", "tile_blend_backward", "segment_sum_ranges",
+                  "cubemap_tap_accumulate"):
+            assert res["launches"].get(k, 0) >= 1, (k, res["launches"])
+    assert results[0]["params_hash"] == results[1]["params_hash"]

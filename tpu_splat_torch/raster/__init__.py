@@ -1,8 +1,9 @@
 """Differentiable rasterizer: preprocess -> bin -> blend (port of
-tpu_splat/raster/__init__.py on one device). Surfel (2DGS) or volumetric
-(3DGS EWA) splats, blended by the tile kernels or by the scan blend;
-differentiable in the Gaussian attributes and the `screen_offset` densify
-probe."""
+tpu_splat/raster/__init__.py). Surfel (2DGS) or volumetric (3DGS EWA)
+splats, blended by the tile kernels or by the scan blend; differentiable in
+the Gaussian attributes and the `screen_offset` densify probe. Given a
+`Mesh`, the tile grid is split over its ranks (raster/sharded.py for the
+tile kernels, the scan blend's mesh branch otherwise)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,11 +12,13 @@ import torch
 
 from tpu_splat_torch.core.device import backward_edge, full_precision_matmul, stage
 from tpu_splat_torch.core.graphics import Camera
+from tpu_splat_torch.dist.collectives import axis_size
 from tpu_splat_torch.raster.config import RasterConfig
 from tpu_splat_torch.raster.preprocess import preprocess
 from tpu_splat_torch.raster.binning import bin_gaussians
 from tpu_splat_torch.raster.blend import blend, blend_kernel_path
 from tpu_splat_torch.raster.volumetric import preprocess_volumetric
+from tpu_splat_torch.raster.sharded import rasterize_tiles_sharded
 
 # allmap channel offsets (reference auxiliary.h:22-28)
 DEPTH_CH = 0
@@ -57,6 +60,8 @@ def rasterize(
     screen_offset: torch.Tensor | None = None,
     hom_precomp: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
+    mesh=None,
+    mesh_axis: str = "tiles",
     mode: str = "surfel",
     normals: torch.Tensor | None = None,
     antialiasing: bool = False,
@@ -67,7 +72,10 @@ def rasterize(
     per-Gaussian input `normals` blended (default +z); `antialiasing`
     scales opacity by the Mip-Splatting factor. `cfg.backend` picks the
     blend: the tile kernels ("auto", "pallas") or the scan blend ("xla").
-    Runs on the device the inputs live on."""
+    With a `mesh` every rank of it calls this on the same replicated
+    inputs and gets the whole frame; the tile kernels then run on its slab
+    of tile rows (`rasterize_tiles_sharded`), the scan blend on its block
+    of tiles. Runs on the device the inputs live on."""
     if mode not in ("surfel", "volumetric"):
         raise ValueError(f"mode must be 'surfel' or 'volumetric', not {mode!r}")
     full_precision_matmul()
@@ -139,32 +147,19 @@ def rasterize(
                 ),
             )
     use_kernel = cfg.use_kernel()
-    with stage("binning"):
-        binned = bin_gaussians(prep, H, W, cfg, aligned=use_kernel)
-    if use_kernel:
-        out = blend_kernel_path(
-            binned,
-            prep.hom,
-            prep.xy,
-            opacity,
-            prep.normal_view,
-            prep.color,
-            refl,
-            scope_mask,
-            bg,
-            H,
-            W,
-            train_shape=cfg.grad_channels == "train",
-            bf16_grads=cfg.bf16_grads,
-            bf16_feats=cfg.bf16_feats,
-            collect_weights=collect_weights,
-        )
-        gw = out.gaussian_weights
+    if use_kernel and mesh is not None:
+        # binning, packing and the kernel pair per rank on its tile slab; the
+        # per-Gaussian gradient sum is the only collective of the backward
+        out, *diag = rasterize_tiles_sharded(
+            prep, opacity, refl, scope_mask, bg, H, W, cfg, mesh=mesh, axis=mesh_axis)
     else:
-        with stage("scan_blend"):
-            out = blend(
-                binned.tile_gid,
-                binned.tile_mask,
+        n_shards = 1 if mesh is None else axis_size(mesh, mesh_axis)
+        with stage("binning"):
+            binned = bin_gaussians(prep, H, W, cfg, pad_tiles_to=n_shards, aligned=use_kernel)
+        diag = binned.num_instances, binned.max_area, binned.tile_counts, binned.pad_overflow
+        if use_kernel:
+            out = blend_kernel_path(
+                binned,
                 prep.hom,
                 prep.xy,
                 opacity,
@@ -175,22 +170,44 @@ def rasterize(
                 bg,
                 H,
                 W,
-                cfg,
+                train_shape=cfg.grad_channels == "train",
+                bf16_grads=cfg.bf16_grads,
+                bf16_feats=cfg.bf16_feats,
+                collect_weights=collect_weights,
             )
-        gw = out.gaussian_weights
-        if not collect_weights:
-            # as the kernel path's serving frame: densify stats off
-            gw = torch.zeros_like(gw)
+        else:
+            with stage("scan_blend"):
+                out = blend(
+                    binned.tile_gid,
+                    binned.tile_mask,
+                    prep.hom,
+                    prep.xy,
+                    opacity,
+                    prep.normal_view,
+                    prep.color,
+                    refl,
+                    scope_mask,
+                    bg,
+                    H,
+                    W,
+                    cfg,
+                    mesh=mesh,
+                    axis=mesh_axis,
+                )
+            if not collect_weights:
+                # as the kernel path's serving frame: densify stats off
+                out = out._replace(gaussian_weights=torch.zeros_like(out.gaussian_weights))
+    num_instances, max_area, tile_counts, pad_overflow = diag
     return RasterOutput(
         color=out.color,
         others=out.others,
         refl_map=out.refl_map,
         radii=prep.radius,
-        gaussian_weights=gw,
+        gaussian_weights=out.gaussian_weights,
         final_T=out.final_T,
         n_contrib=out.n_contrib,
-        num_instances=binned.num_instances,
-        max_area=binned.max_area,
-        tile_counts=binned.tile_counts,
-        pad_overflow=binned.pad_overflow,
+        num_instances=num_instances,
+        max_area=max_area,
+        tile_counts=tile_counts,
+        pad_overflow=pad_overflow,
     )

@@ -57,10 +57,10 @@ class Binned(NamedTuple):
     num_instances: torch.Tensor  # [] int true instance count (overflow check)
     max_area: torch.Tensor  # [] int max tiles touched by one Gaussian
     tile_counts: torch.Tensor  # [T] int32 instances per tile (pre-truncation)
-    tile_starts: torch.Tensor  # [T] range start per tile in tile-sorted order
+    tile_starts: torch.Tensor  # [T_padded] range start per tile in tile-sorted order
     aligned_gid: torch.Tensor  # [cap_al] Gaussian id per aligned slot
     aligned_valid: torch.Tensor  # [cap_al] bool
-    aligned_starts: torch.Tensor  # [T] int32 128-aligned range starts
+    aligned_starts: torch.Tensor  # [T_padded] int32 128-aligned range starts
     aligned_rank: torch.Tensor  # [cap_al] int32 depth rank (P where invalid)
     rank_of: torch.Tensor  # [P] gaussian id -> its depth rank
     seg_start: torch.Tensor  # [P] by rank: first emission slot
@@ -72,13 +72,13 @@ class DenseBinned(NamedTuple):
     """The scan blend's layout (`bin_gaussians(aligned=False)`; the JAX
     `Binned` with aligned=False, whose aligned fields are None)."""
 
-    tile_gid: torch.Tensor  # [T, K] per-tile depth-sorted Gaussian ids
-    tile_mask: torch.Tensor  # [T, K] bool, k < min(count, tile_depth)
+    tile_gid: torch.Tensor  # [T_padded, K] per-tile depth-sorted Gaussian ids
+    tile_mask: torch.Tensor  # [T_padded, K] bool, k < min(count, tile_depth)
     num_instances: torch.Tensor  # [] int true instance count (overflow check)
     max_area: torch.Tensor  # [] int max tiles touched by one Gaussian
     tile_counts: torch.Tensor  # [T] int32 instances per tile (pre-truncation)
     sorted_gid: torch.Tensor  # [cap] tile-sorted Gaussian ids
-    tile_starts: torch.Tensor  # [T] range start per tile in sorted_gid
+    tile_starts: torch.Tensor  # [T_padded] range start per tile in sorted_gid
     pad_overflow: torch.Tensor  # [] always 0: the layout has no pads
 
 
@@ -299,14 +299,19 @@ def _tight_expand(prep, gorder, area_o, packed, rw_col, cap, cap_cols, tiles_y, 
 
 
 def bin_gaussians(
-    prep: Preprocessed, height: int, width: int, cfg: RasterConfig, aligned: bool = True
+    prep: Preprocessed, height: int, width: int, cfg: RasterConfig, pad_tiles_to: int = 1,
+    aligned: bool = True,
 ) -> Binned | DenseBinned:
     """Invariant: valid rows have tiles_touched > 0 (preprocess guarantees
-    it), so zero-area rows sort past the emitting prefix.
+    it; slab-clipped callers clear `valid` for zero-area rows), so zero-area
+    rows sort past the emitting prefix.
 
     `aligned` as in the JAX package (there its default is False; every
     caller here but the scan blend wants the kernel layout): True gives
-    `Binned`, False `DenseBinned` with tight culling off."""
+    `Binned`, False `DenseBinned` with tight culling off. `pad_tiles_to`
+    pads the tile axis of the per-tile tables (tile_starts, aligned_starts,
+    tile_gid, tile_mask) with empty tiles to a multiple of it, for a tile
+    axis split over a mesh; tile_counts stays [T]."""
     dev = prep.depth.device
     tiles_y, tiles_x = tile_grid(height, width)
     if tiles_x > 1024 or tiles_y > 1024:
@@ -316,6 +321,7 @@ def bin_gaussians(
             "(max 1024 tiles per axis = 16384 px)"
         )
     n_tiles = tiles_y * tiles_x
+    n_tiles_padded = n_tiles + (-n_tiles) % pad_tiles_to
     cap = cfg.max_instances
     cap_cols = cfg.max_columns or cap
     mode = cfg.expand_mode
@@ -403,6 +409,10 @@ def bin_gaussians(
         num_instances = total
         max_area = area.max() if P_ else torch.zeros((), dtype=torch.int64, device=dev)
     i32 = lambda x: x.to(torch.int32)
+    tile_counts = i32(counts)
+    if n_tiles_padded != n_tiles:
+        zpad = torch.zeros(n_tiles_padded - n_tiles, dtype=starts.dtype, device=dev)
+        starts, counts = torch.cat([starts, zpad]), torch.cat([counts, zpad])
 
     if not aligned:
         # the scan blend's layout: one stable payload sort by tile (emission
@@ -418,7 +428,7 @@ def bin_gaussians(
             tile_mask=k < counts_capped[:, None],
             num_instances=num_instances,
             max_area=max_area,
-            tile_counts=i32(counts),
+            tile_counts=tile_counts,
             sorted_gid=i32(sorted_gid),
             tile_starts=i32(starts),
             pad_overflow=torch.zeros((), dtype=torch.int64, device=dev),
@@ -432,13 +442,13 @@ def bin_gaussians(
     aligned_counts = torch.div(counts + al - 1, al, rounding_mode="floor") * al
     aligned_starts = _excl_cumsum(aligned_counts)
     pad_counts = aligned_counts - counts
-    pad_cap = n_tiles * min(cfg.pad_per_tile, al)
+    pad_cap = n_tiles_padded * min(cfg.pad_per_tile, al)
     pad_off = _excl_cumsum(pad_counts)
     pad_tile = _expand_by_offsets(pad_off, pad_cap)
     npads = pad_counts.sum()
     pad_overflow = torch.clamp(npads - pad_cap, min=0)
     pad_ok = torch.arange(pad_cap, dtype=torch.int64, device=dev) < npads
-    pad_tile = torch.where(pad_ok, pad_tile, torch.full_like(pad_tile, n_tiles))
+    pad_tile = torch.where(pad_ok, pad_tile, torch.full_like(pad_tile, n_tiles_padded))
 
     key = torch.cat([inst_tile, pad_tile])
     gid_cat = torch.cat([inst_gid, torch.zeros(pad_cap, dtype=torch.int64, device=dev)])
@@ -465,7 +475,7 @@ def bin_gaussians(
     return Binned(
         num_instances=num_instances,
         max_area=max_area,
-        tile_counts=i32(counts),
+        tile_counts=tile_counts,
         tile_starts=i32(starts),
         aligned_gid=aligned_gid,
         aligned_valid=aligned_valid,

@@ -1,9 +1,14 @@
 """Tile blending: through the tile kernel pair, or as the scan blend; and
 image assembly.
 
-Port of tpu_splat/raster/blend.py on one device: `blend_kernel_path` (the
-JAX `blend_pallas`), `assemble_image`, `tile_origins`, `_tiles_to_image`,
-and the scan blend `blend` (`backend="xla"`). The scan blend is the
+Port of tpu_splat/raster/blend.py: `blend_kernel_path` (the JAX
+`blend_pallas`), `assemble_image`, `tile_origins`, `_tiles_to_image`, and
+the scan blend `blend` (`backend="xla"`). Given a `Mesh` (dist/mesh.py),
+`blend` and `blend_kernel_path` split the (padded) tile axis over its
+ranks: each rank blends its block of tiles against the replicated
+Gaussians, the blocks are gathered into the whole image on every rank, the
+Gaussians' gradient partials are summed and `gaussian_weights` is the max
+of the ranks' (dist/collectives.py). The scan blend is the
 reference compositing (forward.cu:258-489) rewritten for whole tile grids:
 each tile's depth-sorted list is consumed `chunk` instances at a time, and
 within a chunk the front-to-back "over" recurrence becomes exclusive
@@ -24,6 +29,13 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_splat_torch.core.device import stage
 from tpu_splat_torch.core.segops import segment_max_sorted
+from tpu_splat_torch.dist.collectives import (
+    all_max_,
+    axis_size,
+    gather_rows,
+    replicated,
+    shard_rows,
+)
 from tpu_splat_torch.kernels import tile_blend as tb
 from tpu_splat_torch.raster.config import (
     ALPHA_MAX,
@@ -60,11 +72,17 @@ def _tiles_to_image(x: torch.Tensor, tiles_y: int, tiles_x: int, H: int, W: int)
     return x[:H, :W]
 
 
-def tile_origins(height: int, width: int, device="cpu") -> torch.Tensor:
-    """[T, 2] int32 pixel origin (x, y) of each tile, row-major."""
+def tile_origins(height: int, width: int, pad_tiles_to: int = 1, device="cpu") -> torch.Tensor:
+    """[T_padded, 2] int32 pixel origin (x, y) of each tile, row-major; the
+    tiles that pad T to a multiple of `pad_tiles_to` lie far outside the
+    image (nothing bins there)."""
     tiles_y, tiles_x = tile_grid(height, width)
     t_idx = torch.arange(tiles_y * tiles_x, dtype=torch.int32, device=device)
-    return torch.stack([(t_idx % tiles_x) * TILE, (t_idx // tiles_x) * TILE], dim=-1)
+    org = torch.stack([(t_idx % tiles_x) * TILE, (t_idx // tiles_x) * TILE], dim=-1)
+    pad = (-org.shape[0]) % pad_tiles_to
+    if pad:
+        org = torch.cat([org, torch.full((pad, 2), 1 << 22, dtype=torch.int32, device=device)])
+    return org
 
 
 def assemble_image(out_px, tiles_y, tiles_x, height, width, bg, train_shape: bool):
@@ -131,6 +149,8 @@ def blend_kernel_path(
     bf16_grads: bool = False,
     bf16_feats: bool = False,
     collect_weights: bool = True,
+    mesh=None,
+    axis: str = "tiles",
 ) -> BlendOutput:
     """Blend through the tile kernel pair (counterpart of the JAX
     `blend_pallas`): pack the aligned instance slab, run the differentiable
@@ -138,7 +158,14 @@ def blend_kernel_path(
     (collect_weights) reduce the per-instance max weights to per-Gaussian
     ones. Gradients flow to hom, xy, opacity, normal_view, color and refl:
     the kernel's hand-derived backward, then the sort-regroup of the slab
-    gather (bf16_grads packs its rows in bf16 pairs)."""
+    gather (bf16_grads packs its rows in bf16 pairs).
+
+    With a mesh (binned with pad_tiles_to = its size), each rank runs the
+    kernel pair on its block of tiles against the replicated slab; the
+    slab's gradient partials are summed and the per-instance max weights
+    maxed across the ranks. `rasterize` never takes this branch: its kernel
+    path with a mesh goes to `raster.sharded.rasterize_tiles_sharded`, as the
+    JAX package's does; only the multi-rank tests call it."""
     tiles_y, tiles_x = tile_grid(height, width)
     with stage("pack_features"):
         feats = tb.pack_features(
@@ -148,14 +175,21 @@ def blend_kernel_path(
             seg_start=binned.seg_start, seg_end=binned.seg_end,
             bf16_grads=bf16_grads, bf16_feats=bf16_feats,
         )
-        org = tile_origins(height, width, device=hom.device)
+        n_shards = 1 if mesh is None else axis_size(mesh, axis)
+        org = tile_origins(height, width, pad_tiles_to=n_shards, device=hom.device)
+        counts = binned.tile_counts  # [T]: the tiles a mesh's padding added are empty
+        counts = torch.cat([counts, counts.new_zeros(org.shape[0] - counts.shape[0])])
+        index = [binned.aligned_starts, counts, org[:, 0].contiguous(), org[:, 1].contiguous()]
+    kw = dict(full_grads=not train_shape, packed_feats=bf16_feats, collect_wmax=collect_weights)
     with stage("tile_blend_forward"):
-        out_px, wmax = tb.blend_kernel(
-            feats, binned.aligned_starts, binned.tile_counts,
-            org[:, 0].contiguous(), org[:, 1].contiguous(),
-            full_grads=not train_shape, packed_feats=bf16_feats,
-            collect_wmax=collect_weights,
-        )
+        if mesh is None:
+            out_px, wmax = tb.blend_kernel(feats, *index, **kw)
+        else:
+            (feats,) = replicated(mesh, feats)
+            out_l, wmax = tb.blend_kernel(feats, *(shard_rows(mesh, t) for t in index), **kw)
+            out_px = gather_rows(mesh, out_l)
+            wmax = wmax.clone()
+            all_max_(mesh, wmax)
     with stage("assemble_image"):
         color_img, others, refl_img, T_img, ncon_img = assemble_image(
             out_px, tiles_y, tiles_x, height, width, bg, train_shape=train_shape,
@@ -392,7 +426,7 @@ def _blend_scan(
 
 
 def blend(
-    tile_gid: torch.Tensor,  # [T, K]
+    tile_gid: torch.Tensor,  # [T, K] (T padded to a multiple of the mesh size)
     tile_mask: torch.Tensor,  # [T, K]
     hom: torch.Tensor,  # [P,3,3]
     xy: torch.Tensor,  # [P,2]
@@ -405,15 +439,29 @@ def blend(
     height: int,
     width: int,
     cfg: RasterConfig,
+    mesh=None,
+    axis: str = "tiles",
 ) -> BlendOutput:
-    """The scan blend on one device (tpu_splat/raster/blend.py:blend
-    without its mesh branch). Differentiable in hom, xy, opacity,
-    normal_view, color and refl; gaussian_weights is detached."""
+    """The scan blend (tpu_splat/raster/blend.py:blend). Differentiable in
+    hom, xy, opacity, normal_view, color and refl; gaussian_weights is
+    detached. With a mesh (binned with pad_tiles_to = its size), each rank
+    scans its block of the tile axis; gaussian_weights is the max of the
+    ranks' partials."""
     tiles_y, tiles_x = tile_grid(height, width)
-    org = tile_origins(height, width, device=hom.device)
-    feats = GaussFeats(hom=hom, xy=xy, opacity=opacity, normal_view=normal_view,
-                       color=color, refl=refl, scope_mask=scope_mask)
-    final = _blend_scan(tile_gid, tile_mask, org, feats, cfg)
+    n_shards = 1 if mesh is None else axis_size(mesh, axis)
+    org = tile_origins(height, width, pad_tiles_to=n_shards, device=hom.device)
+    if mesh is None:
+        feats = GaussFeats(hom=hom, xy=xy, opacity=opacity, normal_view=normal_view,
+                           color=color, refl=refl, scope_mask=scope_mask)
+        final = _blend_scan(tile_gid, tile_mask, org, feats, cfg)
+    else:
+        feats = GaussFeats(*replicated(mesh, hom, xy, opacity, normal_view, color, refl),
+                           scope_mask=scope_mask)
+        local = _blend_scan(*(shard_rows(mesh, t) for t in (tile_gid, tile_mask, org)),
+                            feats, cfg)
+        gw = local.gw.clone()
+        all_max_(mesh, gw)
+        final = BlendCarry(*(gather_rows(mesh, x) for x in local[:-1]), gw=gw)
 
     img = lambda x: _tiles_to_image(x, tiles_y, tiles_x, height, width)
     out_color = img(final.color + final.T[..., None] * bg[None, None, :])

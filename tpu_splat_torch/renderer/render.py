@@ -5,7 +5,9 @@ the base colour and auxiliary maps, then reflect the camera rays about the
 rendered world normal, sample the learned cubemap and composite
 `(1-refl)*base + refl*env` (reference gaussian_renderer/__init__.py).
 render() also derives the expected depth and the depth-derived pseudo
-surface normal. Maps are channels-last [H, W, C].
+surface normal. Maps are channels-last [H, W, C]. Given a `Mesh`, every
+rank of it renders the whole frame: the rasterizer splits the tile grid
+over the ranks and the reflection's env pass their pixel rows.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from tpu_splat_torch.core.graphics import (
     reflect,
 )
 from tpu_splat_torch.core.device import stage
-from tpu_splat_torch.envmap.cubemap import sample_cubemap
+from tpu_splat_torch.dist.collectives import axis_size, gather_rows, replicated, shard_rows
+from tpu_splat_torch.envmap.cubemap import CubemapParams, sample_cubemap
 from tpu_splat_torch.model.state import GaussianState
 from tpu_splat_torch.raster import rasterize, RasterConfig
 
@@ -78,11 +81,27 @@ def depth_to_normal(camera: Camera, depth: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
 
 
-def get_refl_color(env, camera: Camera, normal_map: torch.Tensor) -> torch.Tensor:
+def get_refl_color(env, camera: Camera, normal_map: torch.Tensor, mesh=None,
+                   mesh_axis: str = "tiles") -> torch.Tensor:
     """Reflect the camera rays about the rendered world normal and sample the
-    env cubemap through a sigmoid (reference gaussian_renderer:26-35)."""
-    rays = camera_rays(camera)  # [H,W,3]
-    return torch.sigmoid(sample_cubemap(env, reflect(rays, normal_map)))
+    env cubemap through a sigmoid (reference gaussian_renderer:26-35).
+
+    With a mesh, the cubemap pass (the 4-tap sample and, in the backward,
+    the tap accumulation) runs on each rank's block of pixel rows (padded
+    to a multiple of the mesh size) against the replicated texture, whose
+    gradient partials are summed; the rows are gathered into the whole map
+    on every rank. The reflection itself runs on the whole map, so the
+    normal map's gradient sums its terms in the unsharded order."""
+    dirs = reflect(camera_rays(camera), normal_map)  # [H,W,3]
+    if mesh is None:
+        return torch.sigmoid(sample_cubemap(env, dirs))
+    H = dirs.shape[0]
+    pad = (-H) % axis_size(mesh, mesh_axis)
+    if pad:
+        dirs = torch.cat([dirs, dirs.new_zeros((pad,) + dirs.shape[1:])])
+    env_r = CubemapParams(*replicated(mesh, env.texture, env.fail_value))
+    local = sample_cubemap(env_r, shard_rows(mesh, dirs))
+    return gather_rows(mesh, torch.sigmoid(local))[:H]
 
 
 def render_env_map(state: GaussianState, H: int = 512, W: int = 1024):
@@ -104,6 +123,8 @@ def render(
     env_scope_radius: float = 0.0,
     override_color: torch.Tensor | None = None,
     screen_offset: torch.Tensor | None = None,
+    mesh=None,
+    mesh_axis: str = "tiles",
 ) -> RenderOutput:
     """Differentiable training render (reference render(), :42-219): the
     rasterized base colour and auxiliary maps, the expected depth and the
@@ -137,6 +158,8 @@ def render(
         scale_modifier=scaling_modifier,
         screen_offset=screen_offset,
         alive=state.alive,
+        mesh=mesh,
+        mesh_axis=mesh_axis,
     )
     with stage("surface"):
         allmap = out.others
@@ -157,7 +180,8 @@ def render(
         refl_color = torch.zeros_like(out.color)
     else:
         with stage("reflection"):
-            refl_color = get_refl_color(state.env, camera, normal_world)
+            refl_color = get_refl_color(state.env, camera, normal_world, mesh=mesh,
+                                        mesh_axis=mesh_axis)
             render_img = (1.0 - refl_map) * out.color + refl_map * refl_color
     return RenderOutput(
         render=render_img,

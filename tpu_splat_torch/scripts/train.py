@@ -8,8 +8,17 @@ window, normal propagation, colour sabotage, opacity-LR pulsing, env-map
 doubling, the xyz freeze, the learned ISP with the late scene freeze, plus
 capacity growth, checkpoints, PLY snapshots and cfg_args, all in files the
 JAX package reads, and the network viewer (one request served an
-iteration unless --disable_viewer). One device: `--mesh tiles|dp` is not
-ported.
+iteration unless --disable_viewer).
+
+`--mesh tiles` splits each step's tile grid over several ranks, `--mesh dp`
+renders one camera per rank (`dp` views a step from the same epoch
+shuffle; cameras of mixed sizes are padded to one size and masked in the
+loss). The one command starts `--mesh_devices` ranks itself (0: one per
+local card; on the CPU, 0 is one rank), at most one per card, or joins
+torchrun's group when started under torchrun. Every rank runs the same
+schedule with the same draws, so the replicas stay identical; rank 0 alone
+writes the files (the same files a one-device run writes) and serves the
+viewer.
 """
 from __future__ import annotations
 
@@ -42,15 +51,19 @@ def training(args, argv_namespace=None, device: str = "cuda"):
     from tpu_splat_torch.train.grow import check_growth
     from tpu_splat_torch.train.loop import EventLog, is_scene_frozen, run_scheduled_events
     from tpu_splat_torch.train.report import TrainReporter
-    from tpu_splat_torch.train.step import TrainState, make_train_step
+    from tpu_splat_torch.train.step import TrainState, make_train_step, make_train_step_dp
 
-    mesh_mode = getattr(args, "mesh", "none")
-    if mesh_mode in ("tiles", "dp"):
-        raise NotImplementedError(
-            f"--mesh {mesh_mode}: multi-GPU training is not ported yet (ROADMAP.md, "
-            "Queue A item 7)"
-        )
     dev = resolve_device(device)
+    mesh_mode = getattr(args, "mesh", "none")
+    mesh = None
+    if mesh_mode in ("tiles", "dp"):
+        from tpu_splat_torch.dist import make_mesh
+
+        mesh = make_mesh(getattr(args, "mesh_devices", 0) or None, axis=mesh_mode)
+        if mesh is None:  # a rank past --mesh_devices of torchrun's group
+            return None
+    rank0 = mesh is None or mesh.rank == 0
+    dp_n = mesh.size if mesh_mode == "dp" else 1
     model = ModelParams.extract(args).finalize()
     opt = OptimizationParams.extract(args)
     pipe = PipelineParams.extract(args)
@@ -59,11 +72,13 @@ def training(args, argv_namespace=None, device: str = "cuda"):
     if getattr(args, "color_sabotage", None) is False:
         opt.disable_color_sabotage = True
 
-    os.makedirs(model.model_path, exist_ok=True)
-    if argv_namespace is not None:
-        save_cfg_args(model.model_path, argv_namespace)
+    if rank0:
+        os.makedirs(model.model_path, exist_ok=True)
+        if argv_namespace is not None:
+            save_cfg_args(model.model_path, argv_namespace)
 
-    print(f"Loading scene {model.source_path}")
+    if rank0:
+        print(f"Loading scene {model.source_path}")
     scene = Scene(
         model.source_path,
         model.model_path,
@@ -74,7 +89,8 @@ def training(args, argv_namespace=None, device: str = "cuda"):
         # the images live on the data device, or with the model on the CPU
         device=dev if dev.type == "cpu" else model.data_device,
     )
-    scene.save_cameras_json()
+    if rank0:
+        scene.save_cameras_json()
     pts, cols = scene.point_cloud
     capacity = 1 << max(int(np.ceil(np.log2(max(len(pts) * 4, 1 << 14)))), 14)
     state = init_from_pcd(
@@ -86,7 +102,8 @@ def training(args, argv_namespace=None, device: str = "cuda"):
         cubemap_resolution=model.cubemap_resol,
         device=dev,
     )
-    print(f"{len(pts)} points, capacity {capacity}, extent {scene.cameras_extent:.2f}")
+    if rank0:
+        print(f"{len(pts)} points, capacity {capacity}, extent {scene.cameras_extent:.2f}")
 
     # the shipped config (production_config); --exact_grads or a nonzero
     # depth_ratio take the exact f32 full-channel path
@@ -118,20 +135,31 @@ def training(args, argv_namespace=None, device: str = "cuda"):
     bg_list = [1.0, 1.0, 1.0] if model.white_background else [0.0, 0.0, 0.0]
     bg = torch.tensor(bg_list, device=dev)
 
+    if mesh is not None:
+        n_sizes = _bucket_camera_sizes(scene.train_cameras) if mesh_mode == "dp" else 1
+        if rank0:
+            print(f"mesh: {mesh_mode} over {mesh.size} devices")
+            if n_sizes > 1:
+                lc = scene.train_cameras[0]
+                print(f"--mesh dp: bucketing {n_sizes} camera sizes to "
+                      f"{lc.camera.height}x{lc.camera.width} with loss masks")
+
     def build_step(raster_cfg):
-        return make_train_step(
-            opt, raster_cfg,
+        common = dict(
             spatial_lr_scale=scene.cameras_extent,
             use_env_scope=opt.use_env_scope,
             env_scope_center=opt.env_scope_center,
             env_scope_radius=opt.env_scope_radius,
             isp_cfg=isp_cfg,
         )
+        if mesh_mode == "dp":
+            return make_train_step_dp(opt, raster_cfg, mesh=mesh, **common)
+        return make_train_step(opt, raster_cfg, mesh=mesh, mesh_axis="tiles", **common)
 
     step_fn = build_step(cfg)
-    reporter = TrainReporter(model.model_path, enable_tb=not args.quiet)
+    reporter = TrainReporter(model.model_path, enable_tb=not args.quiet) if rank0 else None
     gui = None
-    if not args.disable_viewer:
+    if rank0 and not args.disable_viewer:
         from tpu_splat_torch.viewer import network_gui
 
         try:
@@ -155,15 +183,33 @@ def training(args, argv_namespace=None, device: str = "cuda"):
     try:
         for iteration in range(first_iter + 1, opt.iterations + 1):
             frozen = is_scene_frozen(iteration, opt, model.post_process)
-            if not order:
-                order = list(range(len(cams)))
-                rng.shuffle(order)
-            vind = order.pop()
-            cam = cams[vind]
-            gt = cam.image.to(dev)
-            alpha = cam.alpha.to(dev) if cam.alpha is not None else None
-            ts, aux = step_fn(ts, cam.camera, gt, bg, gt_alpha=alpha, frozen=frozen,
-                              frame_idx=vind)
+            # dp_n views a step (one for one device or --mesh tiles) from the
+            # same without-replacement epoch shuffle on every rank
+            vinds = []
+            while len(vinds) < dp_n:
+                if not order:
+                    order = list(range(len(cams)))
+                    rng.shuffle(order)
+                vinds.append(order.pop())
+            if mesh_mode == "dp":
+                batch = [cams[v] for v in vinds]
+                cam = batch[mesh.rank]  # this rank's, for a failure snapshot
+                gt = cam.image.to(dev)
+                gts = [gt if lc is cam else lc.image for lc in batch]
+                alphas = None
+                if all(lc.alpha is not None for lc in batch):
+                    alphas = [lc.alpha.to(dev) for lc in batch]
+                masks = None
+                if any(getattr(lc, "pix_mask", None) is not None for lc in batch):
+                    masks = [lc.pix_mask.to(dev) for lc in batch]
+                ts, aux = step_fn(ts, [lc.camera for lc in batch], gts, bg, gt_alphas=alphas,
+                                  frozen=frozen, frame_idx=vinds, pix_masks=masks)
+            else:
+                cam = cams[vinds[0]]
+                gt = cam.image.to(dev)
+                alpha = cam.alpha.to(dev) if cam.alpha is not None else None
+                ts, aux = step_fn(ts, cam.camera, gt, bg, gt_alpha=alpha, frozen=frozen,
+                                  frame_idx=vinds[0])
 
             # a device-side EMA: the host reads the loss only when it prints
             ema_loss = 0.4 * aux.loss + 0.6 * ema_loss
@@ -173,7 +219,7 @@ def training(args, argv_namespace=None, device: str = "cuda"):
                     # reference-style failure snapshot (diff_surfel_rasterization/
                     # __init__.py:91-98): dump every rasterizer input once, then
                     # stop, so the failure reproduces offline
-                    p = dump_snapshot(
+                    p = None if not rank0 else dump_snapshot(
                         model.model_path, ts.gaussians, cam.camera, gt, iteration,
                         f"non-finite loss {loss_now} at iteration {iteration}",
                         cfg=cfg, bg=bg,
@@ -182,12 +228,13 @@ def training(args, argv_namespace=None, device: str = "cuda"):
                         f"non-finite loss at iteration {iteration}; "
                         f"rasterizer inputs dumped to {p or 'existing snapshot_fw.npz'}"
                     )
-                print(
-                    f"[{iteration}] loss {float(ema_loss):.5f} psnr {float(aux.psnr):.2f} "
-                    f"pts {int(aux.n_alive)} inst {int(aux.num_instances)} "
-                    f"maxtile {int(aux.max_tile_count)} "
-                    f"({(time.time()-t_start):.0f}s)"
-                )
+                if rank0:
+                    print(
+                        f"[{iteration}] loss {float(ema_loss):.5f} psnr {float(aux.psnr):.2f} "
+                        f"pts {int(aux.n_alive)} inst {int(aux.num_instances)} "
+                        f"maxtile {int(aux.max_tile_count)} "
+                        f"({(time.time()-t_start):.0f}s)"
+                    )
             prev_overflow = log.overflowed
             ts = run_scheduled_events(
                 ts,
@@ -215,9 +262,10 @@ def training(args, argv_namespace=None, device: str = "cuda"):
                 )
                 if dec.grew:
                     ts, cfg = dec.ts, dec.cfg
-                    print(f"[{iteration}] GROW: " + "; ".join(dec.reasons))
+                    if rank0:
+                        print(f"[{iteration}] GROW: " + "; ".join(dec.reasons))
                     step_fn = build_step(cfg)
-                elif int(aux.num_instances) >= cfg.max_instances:
+                elif rank0 and int(aux.num_instances) >= cfg.max_instances:
                     # the forward dropped instances this step and growth did not
                     # trigger: keep a one-shot snapshot for an offline repro
                     p = dump_snapshot(
@@ -229,6 +277,8 @@ def training(args, argv_namespace=None, device: str = "cuda"):
                     if p:
                         print(f"[{iteration}] OVERFLOW snapshot -> {p}")
 
+            if not rank0:
+                continue
             if iteration % 100 == 0:
                 reporter.scalars(
                     iteration,
@@ -260,12 +310,60 @@ def training(args, argv_namespace=None, device: str = "cuda"):
         if gui is not None:
             gui.close()
 
-    reporter.close()
-    scene.save(ts.gaussians, opt.iterations)
-    dt_min = (time.time() - t_start) / 60
-    print(f"Training complete in {dt_min:.1f} min; events: {len(log.events)}, "
-          f"densified {log.densified}, pruned {log.pruned}, overflow {log.overflowed}")
+    if rank0:
+        reporter.close()
+        scene.save(ts.gaussians, opt.iterations)
+        dt_min = (time.time() - t_start) / 60
+        print(f"Training complete in {dt_min:.1f} min; events: {len(log.events)}, "
+              f"densified {log.densified}, pruned {log.pruned}, overflow {log.overflowed}")
     return ts
+
+
+def _bucket_camera_sizes(cams) -> int:
+    """Camera-size bucketing for --mesh dp: when the training cameras come
+    in more than one size, pad each camera (`Camera.pad_to` keeps the
+    original pixels in place), its image and alpha to the largest height
+    and width, and give it `pix_mask`, 1 on its own pixels, for the loss.
+    -> the number of sizes."""
+    import torch.nn.functional as F
+
+    sizes = {(lc.camera.height, lc.camera.width) for lc in cams}
+    if len(sizes) < 2:
+        return len(sizes)
+    hmax = max(h for h, _ in sizes)
+    wmax = max(w for _, w in sizes)
+    for lc in cams:
+        h0, w0 = lc.image.shape[:2]
+        grow = (0, 0, 0, wmax - w0, 0, hmax - h0)
+        mask = lc.image.new_zeros((hmax, wmax, 1))
+        mask[:h0, :w0] = 1.0
+        lc.pix_mask = mask
+        lc.camera = lc.camera.pad_to(hmax, wmax)
+        lc.image = F.pad(lc.image, grow)
+        if lc.alpha is not None:
+            lc.alpha = F.pad(lc.alpha, grow)
+    return len(sizes)
+
+
+def _mesh_ranks(requested: int, device: str) -> int:
+    """Ranks for --mesh_devices: on the card at most one per local card (0:
+    all of them), on the CPU as asked (0: one)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        n = torch.cuda.device_count()
+        return min(requested, n) if requested else n
+    return requested or 1
+
+
+def _train_rank(rank: int, args, device: str):
+    """One rank of a multi-rank run: train on this rank's card (or the
+    CPU); rank 0 returns the final TrainState."""
+    import torch
+
+    dev = f"cuda:{torch.cuda.current_device()}" if torch.device(device).type == "cuda" else device
+    ts = training(args, argv_namespace=args, device=dev)
+    return ts if rank == 0 else None
 
 
 def main(argv=None, device: str = "cuda"):
@@ -301,11 +399,12 @@ def main(argv=None, device: str = "cuda"):
     )
     parser.add_argument(
         "--mesh", type=str, default="none", choices=["none", "tiles", "dp"],
-        help="multi-device mode of the JAX package; not ported (only none runs)",
+        help="multi-device mode: split the tile grid of each step over the ranks (tiles) "
+        "or render one camera per rank (dp)",
     )
     parser.add_argument(
         "--mesh_devices", type=int, default=0,
-        help="devices in the mesh (0 = all local devices)",
+        help="ranks in the mesh, one per card (0 = every local card)",
     )
     parser.add_argument("--quiet", "-q", action="store_true")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
@@ -321,7 +420,23 @@ def main(argv=None, device: str = "cuda"):
         args.test_iterations = list(range(5000, args.iterations + 1, 5000))
     if args.iterations not in args.save_iterations:
         args.save_iterations.append(args.iterations)
-    return training(args, argv_namespace=args, device=device)
+    if args.mesh == "none":
+        return training(args, argv_namespace=args, device=device)
+    import torch
+
+    from tpu_splat_torch.dist import launch, multihost_init
+
+    on_card = torch.device(device).type == "cuda"
+    rank, _ = multihost_init(backend="nccl" if on_card else "gloo")
+    if torch.distributed.is_initialized():
+        # a rank of torchrun's group (or of one its caller set up): its card
+        # is its local rank
+        if on_card and "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        return _train_rank(rank, args, device)
+    k = _mesh_ranks(args.mesh_devices, device)
+    return launch(_train_rank, k, args=(args, device),
+                  backend="nccl" if on_card else "gloo")[0]
 
 
 if __name__ == "__main__":
