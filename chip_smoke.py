@@ -88,13 +88,24 @@ densify event, the gradient all-reduce and slab gather ms, each rank's
 peak memory and launches; 12c the train CLI with `--mesh tiles` and
 `--mesh dp` (`--mesh_devices 0`: one rank a card, started by the CLI) for
 30 iterations of phase 8's scene, the files only rank 0 writes loaded back.
+Phase 13 drives the convergence certificate
+(`tpu_splat_torch/scripts/validate_e2e.py:main`) in this process at full
+width (256x256, 48 + 6 views, production capacities) and reduced depth:
+13a `recover` (200 steps), 13b `scratch` (1,002 steps, the fewest at which
+every event kind of its schedule fires, densify among them), 13c
+`recover_vol` (200 steps); the launch counts are set to 0 before each
+task's first step and read after every step (#1-#4 once a step, #4 not in
+the initial stage and never in recover_vol), every loss finite, the train
+PSNR rising (recover_vol: the loss falling), each artifact written with
+the card's name; 13d the parity CLI's three cases
+(`tpu_splat_torch/tools/parity.py:run`) at 256x256.
 Each phase prints one line a step; every failed check raises,
 so the exit code is not 0. Details go to
 chiprun_out/chip_smoke.json. The last four lines are phases 9 and 10's
-forward launches by step, phase 11's volumetric fwd+bwd launches and phase
-12's per-rank step launches, the kernels' JSON record (launches over the 4 timed
-tight training steps), the card's name and power limit as nvidia-smi
-reports them, and the result line.
+forward launches by step, phase 11's volumetric fwd+bwd launches, phase
+12's per-rank step launches and phase 13's launches by task, the kernels'
+JSON record (launches over the 4 timed tight training steps), the card's
+name and power limit as nvidia-smi reports them, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits with a non-zero code and prints no result.
@@ -113,6 +124,9 @@ import time
 import warnings
 
 import numpy as np
+
+from tpu_splat_torch.eval.parity import (  # the holds 11b shares with tools/parity.py
+    FLIPS_PER_4096, KNIFE_BAND, hold_images, knife_margins, patched_blend)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -140,7 +154,6 @@ DEVICE = "cuda:0"
 TOL = 2e-5  # colour, T, normal, refl, scope, M1, M2, wmax: absolute
 # depth rows (depth, median depth, distortion): 2e-5 relative to max(1, the
 # depth the pixel composites)
-FLIPS_PER_4096 = 8  # n_contrib / median-rank flips at the T < 1e-4 knife edge
 
 # roofline of one H100 SXM (NVIDIA's data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -261,13 +274,7 @@ P10_REQUEST_AT = 10  # the client connects once this iteration is served
 # check_growth's tile_depth rule, expand_mode="scan", the brute-force oracle
 P11_FWD_VARIANTS = ("fwd:no_cull", "fwd:profile", "fwd:profile_no_cull")  # kernel_ab.py builds
 P11_HEADROOM = 1.25  # max_instances for a volumetric frame that would truncate: x its count
-P11_IMG_TOL = dict(color=(2e-5, 1e-4), final_T=(2e-5, 1e-4), refl_map=(2e-5, 1e-4),
-                   others=(5e-5, 1e-3))  # (abs, rel): tests/test_pallas.py:37-48
 P11_GRAD_TOL = 1e-3  # of each input's or leaf's max: the blends' VJPs; the steps (see 11b)
-# 11b's frame: a pixel off tolerance without an n_contrib flip must lie
-# within this of a branch point of the blend in float64 (knife_margins)
-KNIFE_BAND = 1e-5
-P11_FLIP_SHARE = 2.0 / 255.0  # one accept flip at alpha = 1/255: its own weight, and T behind it
 # 11b's steps: the kernel step with its blend outputs jittered by this,
 # relative (tests/scan_grad_witness.py): the rows float32-size noise moves
 P11_JITTER = 2.0**-18
@@ -297,6 +304,19 @@ P12_CLI_ARGS = ["-r", "1", "--eval", "--disable_viewer", "-q", "--max_tiles_per_
                 "--max_instances", "3981312", "--tile_depth", "2048", "--iterations", "30",
                 "--init_until_iter", "10", "--test_iterations", "30", "--save_iterations", "30",
                 "--checkpoint_iterations", "30", "--mesh_devices", "0"]
+
+# the convergence certificate (slice 11): tpu_splat_torch/scripts/validate_e2e.py
+# at full width (256x256, 48 + 6 views, production capacities) and reduced
+# depth. scratch's schedule scales with its iterations, but its densify
+# interval is 500 inside the normal-propagation window: 1,002 iterations is
+# the fewest at which every event kind fires (densify at 500, before the
+# window's end at 501)
+P13_ITERATIONS = dict(recover=200, scratch=1002, recover_vol=200)
+P13_KERNELS = dict(recover=TRAIN_KERNELS, scratch=TRAIN_KERNELS,
+                   recover_vol=TRAIN_KERNELS[:3])  # no reflection: no cubemap kernel
+P13_EVENTS = {"reset_opacity", "opacity_lr_pulse", "normal_prop", "color_sabotage",
+              "double_env_map"}
+P13_WINDOW = 25  # steps averaged at each end of a run: the PSNR rises, the loss falls
 
 
 def log(phase: str, **kv) -> None:
@@ -2066,48 +2086,6 @@ def volumetric_frame(state, leaves, normals, cam, cfg, bg, aa, collect_weights=T
                      normals=normals, antialiasing=aa, collect_weights=collect_weights)
 
 
-def hold_images(got, want, label, near_knife=None):
-    """A frame's maps against another's at P11_IMG_TOL, as compare() holds
-    the kernel: the errors are taken over the pixels whose n_contrib did
-    not flip; flipped pixels are counted. A pixel off tolerance whose
-    n_contrib did not flip passes only where `near_knife` ([H, W] bool, from
-    knife_margins) says some (instance, pixel) pair there lies within
-    KNIFE_BAND of a branch point in float64: an accept or a median-rank
-    flip. There every channel bounded by 1 (colour, T, reflection, alpha,
-    normal, scope) stays within one flipped splat's share, P11_FLIP_SHARE;
-    the depth channels (depth, median depth, distortion) may jump, and are
-    reported. Flipped and knife pixels share the budget FLIPS_PER_4096."""
-    import torch
-
-    flip = got.n_contrib != want.n_contrib
-    npx = flip.numel()
-    off = torch.zeros_like(flip)
-    diffs = {}
-    for f, (atol, rtol) in P11_IMG_TOL.items():
-        a, b = getattr(got, f).detach(), getattr(want, f).detach()
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"{label}: non-finite {f}")
-        d = (a - b).abs()
-        over = d > atol + rtol * b.abs()
-        off |= over.any(-1) if over.dim() == 3 else over
-        diffs[f] = d if d.dim() == 3 else d[..., None]
-    knife = off & ~flip
-    stray = knife if near_knife is None else knife & ~near_knife
-    keep = ~flip & ~knife
-    bounded = torch.cat([diffs["color"], diffs["final_T"], diffs["refl_map"],
-                         diffs["others"][..., [1, 2, 3, 4, 7]]], -1)[knife]
-    res = dict(ncon_flips=int(flip.sum()), knife_pixels=int(knife.sum()),
-               stray_pixels=int(stray.sum()), pixels=npx,
-               **{f: float(d.amax(-1)[keep].max()) for f, d in diffs.items()},
-               knife_share=float(bounded.max()) if bounded.numel() else 0.0,
-               knife_depth_jump=float(diffs["others"][..., [0, 5, 6]][knife].max())
-               if bool(knife.any()) else 0.0)
-    if (res["stray_pixels"] or res["knife_share"] > P11_FLIP_SHARE
-            or res["ncon_flips"] + res["knife_pixels"] > FLIPS_PER_4096 * npx / 4096):
-        raise AssertionError(f"{label}: {res}")
-    return res
-
-
 @contextlib.contextmanager
 def blend_inputs(store):
     """Record in `store` the gradients that reach the blend's inputs (the
@@ -2159,121 +2137,6 @@ def jittered_kernel_maps(rel, seed=0):
         yield
     finally:
         rp.blend_kernel_path = kp
-
-
-@contextlib.contextmanager
-def patched_blend(dtype=None, record=None):
-    """rasterize's scan blend with its float inputs cast to `dtype` and its
-    outputs rounded back to theirs (the rest of the step unchanged), and/or
-    its inputs appended, detached, to `record`."""
-    import tpu_splat_torch.raster as rp
-    from tpu_splat_torch.raster.blend import BlendOutput, blend
-
-    def wrapped(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg, **kw):
-        if record is not None:
-            record.append(dict(tile_gid=tile_gid, tile_mask=tile_mask, hom=hom.detach(),
-                               xy=xy.detach(), opacity=opa.detach(), cfg=cfg, size=(h, w)))
-        if dtype is None:
-            return blend(tile_gid, tile_mask, hom, xy, opa, nrm, col, refl, scope, bg, h, w, cfg,
-                         **kw)
-        dt0 = hom.dtype
-        up = [t.to(dtype) for t in (hom, xy, opa, nrm, col, refl)]
-        o = blend(tile_gid, tile_mask, *up, scope, bg.to(dtype), h, w, cfg, **kw)
-        return BlendOutput(**{k: (v.to(dt0) if v.is_floating_point() else v)
-                              for k, v in o._asdict().items()})
-
-    rp.blend = wrapped
-    try:
-        yield
-    finally:
-        rp.blend = blend
-
-
-KNIVES = ("accept", "terminate", "median", "lowpass", "unstable", "near")
-
-
-def knife_margins(rec):
-    """How near each of the blend's branch points every Gaussian and every
-    pixel comes, in float64 on the scan blend's layout `rec` (a
-    patched_blend record): for each knife, the least relative distance over
-    the (instance, pixel) pairs where the branch decides something:
-    accept, alpha = o*G against 1/255 on pairs reached; terminate,
-    T*(1-alpha) against 1e-4 on pairs accepted; median, T against 0.5 on
-    pairs contributing; lowpass, the ray-splat rho3d against the screen
-    filter's rho2d on pairs contributing (the branch routes the gradient to
-    the homography or to the centre); unstable, |p2| against 1e-4 in units
-    of the products it cancels; near, depth against the near plane.
-    Returns ([6, P] per Gaussian, [6, H, W] per pixel, [P] contributing
-    pixels per Gaussian)."""
-    import torch
-
-    from tpu_splat_torch.raster.blend import _excl_cumprod, _excl_cumsum, _tiles_to_image, tile_origins
-    from tpu_splat_torch.raster.config import (ALPHA_MAX, ALPHA_MIN, FILTER_INV_SQUARE, NEAR_N,
-                                               T_EPS, TILE, TILE_PIX, tile_grid)
-
-    dt = torch.float64
-    gid, gmask, cfg = rec["tile_gid"], rec["tile_mask"], rec["cfg"]
-    h_, w_ = rec["size"]
-    hom, xy, opa = (rec[k].to(dt) for k in ("hom", "xy", "opacity"))
-    dev, n_t, P = gid.device, gid.shape[0], hom.shape[0]
-    C, S, L = cfg.chunk, cfg.n_chunks, TILE_PIX
-    org = tile_origins(h_, w_, device=dev)
-    lane = torch.arange(L, device=dev)
-    pixx = (org[:, 0:1] + lane[None] % TILE).to(dt)[:, None, :]
-    pixy = (org[:, 1:2] + lane[None] // TILE).to(dt)[:, None, :]
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-    g_m = torch.full((len(KNIVES), P), float("inf"), dtype=dt, device=dev)
-    p_m = torch.full((len(KNIVES), n_t, L), float("inf"), dtype=dt, device=dev)
-    n_px = torch.zeros(P, dtype=torch.int64, device=dev)
-    T = torch.ones((n_t, L), dtype=dt, device=dev)
-    done = torch.zeros((n_t, L), dtype=torch.bool, device=dev)
-    ids_s, mask_s = gid.reshape(n_t, S, C).long(), gmask.reshape(n_t, S, C)
-    with torch.no_grad():
-        for s in range(S):
-            ids, vm = ids_s[:, s], mask_s[:, s]
-            if not bool(vm.any()):
-                break
-            hm = hom[ids]
-            Tu, Tv, Tw = hm[..., 0, :], hm[..., 1, :], hm[..., 2, :]
-            c = lambda v, i: v[..., i : i + 1]
-            k0, k1, k2 = (pixx * c(Tw, i) - c(Tu, i) for i in range(3))
-            l0, l1, l2 = (pixy * c(Tw, i) - c(Tv, i) for i in range(3))
-            p0, p1, p2 = k1 * l2 - k2 * l1, k2 * l0 - k0 * l2, k0 * l1 - k1 * l0
-            cancel = torch.clamp((k0 * l1).abs() + (k1 * l0).abs(), min=1e-300)
-            unstable = p2.abs() < 1e-4
-            safe = torch.where(unstable, torch.ones_like(p2), p2)
-            sx, sy = p0 / safe, p1 / safe
-            rho3d = torch.where(unstable, torch.full_like(p2, 1e8), sx * sx + sy * sy)
-            g = xy[ids]
-            rho2d = FILTER_INV_SQUARE * ((c(g, 0) - pixx) ** 2 + (c(g, 1) - pixy) ** 2)
-            depth = sx * c(Tw, 0) + sy * c(Tw, 1) + c(Tw, 2)
-            araw = opa[ids][..., None] * torch.exp(-0.5 * torch.minimum(rho3d, rho2d))
-            alpha = torch.clamp(araw, max=ALPHA_MAX)
-            live = vm[..., None] & ~done[:, None, :]
-            accept = (depth >= NEAR_N) & (alpha >= ALPHA_MIN) & live
-            Tb = T[:, None, :] * _excl_cumprod(1.0 - torch.where(accept, alpha, 0.0), 1)
-            trigger = accept & (Tb * (1.0 - alpha) < T_EPS)
-            term_excl = _excl_cumsum(trigger.to(torch.int32), 1) > 0
-            contrib = accept & ~term_excl & ~trigger
-            reached = live & ~term_excl
-            m = (torch.where(reached & (depth >= NEAR_N), (araw - ALPHA_MIN).abs() / ALPHA_MIN, inf),
-                 torch.where(accept & ~term_excl, (Tb * (1.0 - alpha) - T_EPS).abs() / T_EPS, inf),
-                 torch.where(contrib, (Tb - 0.5).abs() / 0.5, inf),
-                 torch.where(contrib & ~unstable,
-                             (rho3d - rho2d).abs() / torch.maximum(rho3d, rho2d), inf),
-                 torch.where(reached, (p2.abs() - 1e-4).abs() / cancel, inf),
-                 torch.where(reached & (alpha >= ALPHA_MIN), (depth - NEAR_N).abs() / NEAR_N, inf))
-            flat = ids.reshape(-1)
-            for i, v in enumerate(m):
-                g_m[i].scatter_reduce_(0, flat, v.amin(2).reshape(-1), "amin")
-                p_m[i] = torch.minimum(p_m[i], v.amin(1))
-            n_px.index_add_(0, flat, contrib.sum(2).reshape(-1))
-            T = T * torch.prod(1.0 - torch.where(contrib, alpha, 0.0), 1)
-            done = done | trigger.any(1)
-            del hm, k0, k1, k2, l0, l1, l2, p0, p1, p2, cancel, sx, sy, rho3d, rho2d, depth
-            del araw, alpha, Tb, m
-    ty, tx = tile_grid(h_, w_)
-    return g_m, _tiles_to_image(p_m.permute(1, 2, 0), ty, tx, h_, w_).permute(2, 0, 1), n_px
 
 
 def forward_visits(libs, feats, index, kw):
@@ -3019,6 +2882,154 @@ def phase12c_cli(dev, detail):
         log("12c cli", mesh=mode, ranks=torch.cuda.device_count(), seconds=f"{secs:.1f}",
             files=len(files), ply_equal=ply_equal, checkpoint_equal=ck_equal)
     detail["phase12c"] = out
+
+
+def phase13_certificate(dev, detail) -> dict:
+    """13a recover, 13b scratch, 13c recover_vol through `validate_e2e.main`
+    on the card, the launch counts set to 0 before each task's first step
+    and read after every step; 13d the parity CLI's cases in this process.
+    Returns the launches of each task's steps, summed."""
+    import torch
+
+    import tpu_splat_torch.train.loop as tloop
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.scripts import validate_e2e as ve
+    from tpu_splat_torch.tools import parity
+
+    p13, totals = {}, {}
+    card = card_line()
+    events_fn = tloop.run_scheduled_events
+    for sub, task in (("13a", "recover"), ("13b", "scratch"), ("13c", "recover_vol")):
+        kernels, steps = P13_KERNELS[task], []
+        logs = []
+
+        def on_step(it, aux):
+            if it == 0:
+                LAUNCHES.clear()
+                return
+            launched = {n: LAUNCHES[n] for n in kernels}
+            LAUNCHES.clear()
+            loss = float(aux if task == "recover_vol" else aux.loss)
+            steps.append(dict(launched=launched, loss=loss,
+                              psnr=None if task == "recover_vol" else float(aux.psnr)))
+
+        def logging_events(ts, it, opt, *a, log=None, **kw):
+            if log is not None and not any(x is log for x in logs):
+                logs.append(log)
+            return events_fn(ts, it, opt, *a, log=log, **kw)
+
+        out = os.path.join(OUT_DIR, f"p13_{task}.json")
+        tloop.run_scheduled_events = logging_events
+        t0 = time.perf_counter()
+        try:
+            verdict = ve.main(["--task", task, "--iterations", str(P13_ITERATIONS[task]),
+                               "--out", out, "--device", str(dev)], on_step=on_step)
+        finally:
+            tloop.run_scheduled_events = events_fn
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            art = json.load(f)
+        # the initial stage (steps before init_until_iter) runs no env pass
+        from tpu_splat_torch.config import OptimizationParams
+
+        sched = (ve.scratch_schedule if task == "scratch" else ve.recover_schedule)(
+            OptimizationParams(), P13_ITERATIONS[task])
+        want = lambda it: {n: int(n != "cubemap_tap_accumulate" or it >= sched.init_until_iter)
+                           for n in kernels}
+        bad = [(i + 1, s_["launched"]) for i, s_ in enumerate(steps)
+               if s_["launched"] != want(i + 1)]
+        if len(steps) != P13_ITERATIONS[task] or bad:
+            raise AssertionError(f"{sub} {task}: {len(steps)} steps, launches off at {bad[:5]}")
+        losses = [s_["loss"] for s_ in steps]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{sub} {task}: a non-finite loss")
+        w = P13_WINDOW
+        if task == "recover_vol":
+            first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+            if not last < first:
+                raise AssertionError(f"{sub} {task}: the loss did not fall: {first} -> {last}")
+        else:
+            psnr = [s_["psnr"] for s_ in steps]
+            first, last = float(np.mean(psnr[:w])), float(np.mean(psnr[-w:]))
+            if not last > first:
+                raise AssertionError(f"{sub} {task}: train PSNR did not rise: {first} -> {last}")
+        if (art["task"] != task or art["verdict"] != verdict or art["device"] != card
+                or art["bars"] != ve.BARS[task] or art["backend"] != "gpu"
+                or art["workload"]["iterations"] != P13_ITERATIONS[task]):
+            raise AssertionError(f"{sub} {task}: artifact {art}")
+        rec = dict(seconds=seconds, steps=len(steps), verdict=verdict,
+                   first_window=first, last_window=last,
+                   train_view_psnr=art["train_view_psnr"], held_out_psnr=art["held_out_psnr"],
+                   held_out_ssim=art["held_out_ssim"], wall_seconds=art["wall_seconds"],
+                   step_ms=1e3 * art["wall_seconds"] / len(steps))
+        if task == "scratch":
+            log_ = logs[0]
+            kinds = {e for _, e in log_.events}
+            if P13_EVENTS - kinds or not log_.densified:
+                raise AssertionError(f"{sub} scratch: events {sorted(kinds)}, densified "
+                                     f"{log_.densified}")
+            rec.update(densified=log_.densified, pruned=log_.pruned, overflowed=log_.overflowed,
+                       events=len(log_.events))
+        totals[task] = {n: sum(s_["launched"][n] for s_ in steps) for n in kernels}
+        p13[task] = rec
+        log(f"{sub} {task}", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                for k, v in rec.items()},
+            launches=json.dumps(totals[task]).replace(" ", ""))
+        torch.cuda.empty_cache()
+    # 13d. the parity CLI's three cases at 256x256 on the card
+    t0 = time.perf_counter()
+    res = parity.run(device=dev)
+    seconds = time.perf_counter() - t0
+    if not res["ok"]:
+        raise AssertionError(f"13d parity: {res}")
+    p13["parity"] = dict(seconds=seconds, **{c: res[c]["rows"] for c in parity.CASES})
+    worst = {c: max(r["rel"] if r["relative"] else r["max_abs"] for r in res[c]["rows"]
+                    if not r["name"].startswith("fwd middepth") and "hold" not in r["name"])
+             for c in parity.CASES}
+    log("13d parity", seconds=f"{seconds:.1f}", **{c: f"{v:.3g}" for c, v in worst.items()})
+    p13["step_stages"] = phase13_step_stages(dev)
+    detail["certificate"] = p13
+    return totals
+
+
+def phase13_step_stages(dev) -> dict:
+    """13e. Where a 256x256 step's time goes: the recover task's step
+    (after a warm-up) on view 0, the stages' CUDA-event ms (median of 3),
+    the host clock, and the host synchronizations of one step."""
+    import torch
+
+    from tpu_splat_torch.config import OptimizationParams
+    from tpu_splat_torch.core.device import record_stages
+    from tpu_splat_torch.scripts import validate_e2e as ve
+    from tpu_splat_torch.train.step import TrainState, make_train_step
+
+    cfg = ve.task_config(False)
+    gt_state, _ = ve.build_gt_state(False, dev)
+    cam = ve.make_cameras(256, 256, 48, 6, device=dev)[0]
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        gt = ve.render(gt_state, cam, cfg, bg, initial_stage=False).render
+    opt = ve.recover_schedule(OptimizationParams(), P13_ITERATIONS["recover"])
+    ts = TrainState.create(ve.recover_state(gt_state, np.random.default_rng(9)), opt)
+    step = make_train_step(opt, cfg, spatial_lr_scale=4.2)
+    ts, _ = step(ts, cam, gt, bg)
+    runs = []
+    for _ in range(3):
+        with record_stages() as st_ms:
+            ms, (ts, _) = wall_ms(lambda: step(ts, cam, gt, bg))
+        runs.append(dict(st_ms, step_wall=ms))
+    stages = {k: float(np.median([r.get(k, 0.0) for r in runs])) for k in runs[-1]}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ts, _ = step(ts, cam, gt, bg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    stages["host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    log("13e recover step stages", **{k: (f"{v:.2f}" if isinstance(v, float) else v)
+                                      for k, v in stages.items()})
+    return stages
 
 
 def main() -> int:
@@ -3816,6 +3827,12 @@ def main() -> int:
     log("11 forward variants built", **{k: f"{v['seconds']:.1f}s" for k, v in fwd_builds.items()})
     vol_launches = phase11_modes(dev, detail, views, fwd_libs)
 
+    # 13. the convergence certificate and the parity CLI (slice 11)
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    p13_launches = phase13_certificate(dev, detail)
+    log("13 done", seconds=f"{time.perf_counter() - t13:.1f}")
+
     # the kernels' record: launches over the 4 timed steps of the newest
     # main path (the tight-culling step; segment_sum_rows is on no path)
     expand_sum = {f: sum(r[f] for r in list(expand.values())[:2])
@@ -3864,7 +3881,8 @@ def main() -> int:
     print(json.dumps({"phase9_launches": {"tile_blend_forward": eval_launches},
                       "phase10_launches": {"tile_blend_forward": mesh_launches},
                       "phase11_volumetric_launches": vol_launches,
-                      "phase12_launches_per_rank": p12_launches}))
+                      "phase12_launches_per_rank": p12_launches,
+                      "phase13_launches": p13_launches}))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

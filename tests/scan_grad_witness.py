@@ -50,6 +50,7 @@ def compare_rows(grads, P, g_m, n_px, label):
     import torch
 
     import chip_smoke as cs
+    from tpu_splat_torch.eval import parity
 
     pairs = [("K", "S"), ("K", "R"), ("S", "R")] + ([("K", "Kp")] if "Kp" in grads else [])
     g_min = g_m.amin(0)
@@ -82,7 +83,7 @@ def compare_rows(grads, P, g_m, n_px, label):
         leaf["top"] = [dict(row=int(r), **{p: float(v[r]) for p, v in e.items()},
                             **({"pixels": int(n_px[r]),
                                 "margins": {kn: float(g_m[i, r]) for i, kn in
-                                            enumerate(cs.KNIVES)}} if per_row else {}))
+                                            enumerate(parity.KNIVES)}} if per_row else {}))
                        for r in rows[:TOP].tolist()]
         out[k] = leaf
         print(f"[witness] {label} {k}: "
@@ -96,6 +97,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from tpu_splat_torch.eval import parity
     from tpu_splat_torch.data.synthetic import orbit_camera
     from tpu_splat_torch.kernels import build
     from tpu_splat_torch.raster import rasterize
@@ -139,7 +141,7 @@ def main() -> int:
         step = make_train_step(opt, c, 1.0, isp_cfg=isp)
         torch.cuda.reset_peak_memory_stats()
         edge = {}
-        with cs.patched_blend(dtype=dt, record=rec if name == "S" else None), \
+        with parity.patched_blend(dtype=dt, record=rec if name == "S" else None), \
                 cs.blend_inputs(edge), cs.jittered_kernel_maps(*noise):
             ms, (_, aux) = cs.wall_ms(lambda: step(ts, cam, gt0, bgd, frame_idx=0))
         grads[name] = {k: v.detach() for k, v in aux.grads.items()}
@@ -155,7 +157,7 @@ def main() -> int:
         del aux, step
     rec = rec[0]
     torch.cuda.empty_cache()
-    g_m, p_m, n_px = cs.knife_margins(rec)
+    g_m, p_m, n_px = parity.knife_margins(rec)
     g_min = g_m.amin(0)
     alive = state.alive
     P = alive.shape[0]
@@ -178,7 +180,7 @@ def main() -> int:
         edge = {}
         leaves = [t.detach().requires_grad_() for t in
                   (state.xyz, state.get_scaling(), state.rotation, state.get_opacity())]
-        with cs.patched_blend(dtype=dt), cs.blend_inputs(edge):
+        with parity.patched_blend(dtype=dt), cs.blend_inputs(edge):
             o = rasterize(*leaves, state.get_refl().detach(), cam, bgd, c,
                           sh=state.get_features().detach(), sh_degree=state.max_sh_degree,
                           alive=state.alive)
@@ -192,7 +194,7 @@ def main() -> int:
     # the frames, pixel by pixel: n_contrib flips and pixels off 11b's
     # tolerances, each pair of the three, with the least knife margin there
     def frame(c, dt=None):
-        with torch.no_grad(), cs.patched_blend(dtype=dt):
+        with torch.no_grad(), parity.patched_blend(dtype=dt):
             return rasterize(state.xyz, state.get_scaling(), state.rotation,
                              state.get_opacity(), state.get_refl(), cam, bgd, c,
                              sh=state.get_features(), sh_degree=state.max_sh_degree,
@@ -205,12 +207,12 @@ def main() -> int:
         fa, fb = frames[a], frames[b]
         flip = fa.n_contrib != fb.n_contrib
         off = flip.clone()
-        for f, (atol, rtol) in cs.P11_IMG_TOL.items():
+        for f, (atol, rtol) in parity.IMG_TOL.items():
             x, y = getattr(fa, f), getattr(fb, f)
             o = (x - y).abs() > atol + rtol * y.abs()
             off |= o.any(-1) if o.dim() == 3 else o
         excess = {}
-        for f in cs.P11_IMG_TOL:
+        for f in parity.IMG_TOL:
             d = (getattr(fa, f) - getattr(fb, f)).abs()
             d = d.amax(-1) if d.dim() == 3 else d
             excess[f] = [float(d[~off].max()), float(d[off & ~flip].max()) if bool((off & ~flip).any()) else 0.0,

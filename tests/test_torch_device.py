@@ -42,6 +42,7 @@ expand_mode="scan" on the card: every field equal to the CPU's and to
 the unsharded step: the loss 1e-5 relative, the image 2e-5, every gradient
 1e-3 of its leaf's max, the ranks' parameters bit-identical.
 """
+import importlib
 import itertools
 import math
 import os
@@ -99,8 +100,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(tpu_splat_torch.__path__, 'tpu_splat_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpu_splat'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 77 else 0)\n"
+        "new = {'tpu_splat_torch.scripts.validate_e2e', 'tpu_splat_torch.eval.parity',\n"
+        "       'tpu_splat_torch.tools', 'tpu_splat_torch.tools.parity',\n"
+        "       'tpu_splat_torch.tools.scaling_table'}\n"
+        "print(len(mods), bad, sorted(new - set(mods)))\n"
+        "sys.exit(1 if bad or new - set(mods) or len(mods) < 87 else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -108,7 +112,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["state", "camera", "orbit_camera", "extract_mesh", "view",
-                                   "test_rasterizer"])
+                                   "test_rasterizer", "validate_e2e", "parity"])
 def test_cuda_request_without_cuda_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     d = _scene(8, 0)
@@ -123,6 +127,9 @@ def test_cuda_request_without_cuda_raises(monkeypatch, entry):
         "extract_mesh": lambda: _script("extract_mesh").main(["-m", "no_such_model"]),
         "view": lambda: _script("view").main(["-m", "no_such_model"]),
         "test_rasterizer": lambda: _script("test_rasterizer").main(["--headless"]),
+        # the convergence certificate and the parity CLI: the card unless --device cpu
+        "validate_e2e": lambda: _script("validate_e2e").main(["--task", "recover"]),
+        "parity": lambda: importlib.import_module("tpu_splat_torch.tools.parity").main([]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

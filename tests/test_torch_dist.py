@@ -10,8 +10,9 @@ started by `tpu_splat_torch.dist.launch`) run:
   num_instances (in global capacity units), the busiest tile and
   pad_overflow equal; gaussian_weights within 1e-6 of each package's
   unsharded rasterizer, and apart from the JAX package's by no more than
-  the unsharded port is (on this scene up to 2.3e-5: alpha * T in another
-  order of float32 operations);
+  the unsharded port is (on this scene up to 2.3e-5, at the edge-on
+  Gaussian 68, where the port is the nearer to float64:
+  tests/test_torch_witness.py::test_gaussian_weights_gap_is_an_edge_on_splat);
 - the tile-sharded training step with the ISP and env scope on, in the
   deferred-reflection stage, at 42x48 (at 4 ranks the env pass pads its
   pixel rows too) under the exact switches, against the loss function of

@@ -81,6 +81,18 @@ def test_gmsd_equals_jax():
     assert gmsd(IMG_A, IMG_A) == 0.0
 
 
+def test_gmsd_takes_tensors():
+    """[H, W, 3] tensors, as validate_e2e's evaluation passes them (on the
+    card there), score as their numpy arrays do; a tensor that needs a
+    gradient is read detached."""
+    import torch
+
+    from tpu_splat_torch.eval.lpips import gmsd
+
+    a, b = torch.tensor(IMG_A, requires_grad=True), torch.tensor(IMG_B)
+    assert gmsd(a, b) == gmsd(IMG_A, IMG_B) == gmsd(IMG_A, b)
+
+
 def _vgg_state_dict(rng):
     """Random VGG16-features weights in torchvision's key layout."""
     from tpu_splat_torch.eval.lpips import _VGG16_PLAN

@@ -178,3 +178,62 @@ def test_port_is_no_farther_from_float64_than_jax(case, reference, name):
         assert d_port <= d_jax + EDGE_ON_TOL[name], (k, d_jax, d_port)
     print(name, "distance to float64 over the leaf's max (jax, port, jax-port):", dist,
           "port farther on", [k for k, (a, b, _) in dist.items() if b > a])
+
+
+@pytest.fixture(scope="module")
+def weights_case():
+    """`gaussian_weights` of tests/test_torch_train.py's scene (120 Gaussians,
+    5 dead) at tests/test_torch_dist.py's render camera, under the
+    production switches with all channels: the JAX package's (float32, its
+    Pallas kernels in interpret mode), the port's (float32, the plain kernel
+    version) and tests/ref_oracle.py's forward in float64, with each
+    Gaussian's homography conditioning |det| / the product of its row norms."""
+    from tests.test_torch_train import BG, KW as TKW, _camera_arrays, _jax_train_state, _scene
+    from tests.test_torch_train import _ts_to_numpy
+    from tpu_splat_torch.model.convert import train_state_from_numpy
+
+    d = _scene()
+    jts = _jax_train_state(d)
+    cam = orbit_camera(H, W, radius=4.0, azimuth=0.4, elevation=0.3)
+    g = jts.gaussians
+    j_gw = jax.jit(lambda s: j_rasterize(
+        s.xyz, s.get_scaling(), s.rotation, s.get_opacity(), s.get_refl(), cam, jnp.asarray(BG),
+        j_production_config(backend="pallas", grad_channels="full", **TKW),
+        sh=s.get_features(), sh_degree=s.max_sh_degree, alive=s.alive))(g).gaussian_weights
+    tg = train_state_from_numpy(_ts_to_numpy(jts), device="cpu").gaussians
+    tcam = camera_from_numpy(_camera_arrays(cam), device="cpu")
+    t_out = t_rasterize(tg.xyz, tg.get_scaling(), tg.rotation, tg.get_opacity(), tg.get_refl(),
+                        tcam, torch.tensor(BG), tcfg.production_config(grad_channels="full", **TKW),
+                        sh=tg.get_features(), sh_degree=tg.max_sh_degree, alive=tg.alive)
+    to64 = lambda a: np.asarray(a, np.float64)
+    opacity = 1.0 / (1.0 + np.exp(-to64(d["opacity"][:, 0])))
+    opacity[~d["alive"]] = 0.0
+    n = len(opacity)
+    with RO.dtype(np.float64), np.errstate(all="ignore"):
+        prep = RO.ref_preprocess(to64(d["xyz"]), np.exp(to64(d["scaling"])), to64(d["rotation"]),
+                                 to64(cam.world_view), to64(cam.full_proj), W, H)
+        f64 = RO.ref_render_forward(prep, np.zeros((n, 3)), opacity, np.zeros(n),
+                                    np.ones(n, bool), to64(BG), W, H)["gw"]
+    hom = t_preprocess(tg.xyz, tg.get_scaling(), tg.rotation, tcam.world_view, tcam.full_proj,
+                       tcam.camera_center, H, W, colors=torch.zeros((n, 3))).hom.double().numpy()
+    ratio = np.abs(np.linalg.det(hom)) / np.prod(np.linalg.norm(hom, axis=-1), axis=-1)
+    return dict(jax=np.asarray(j_gw, np.float64), port=t_out.gaussian_weights.double().numpy(),
+                f64=f64, ratio=ratio)
+
+
+def test_gaussian_weights_gap_is_an_edge_on_splat(weights_case):
+    """The port's gaussian_weights lie within 2e-5 of the float64 oracle's on
+    every Gaussian. Where they part from the JAX package's by more than 2e-5
+    (Gaussian 68 alone, 2.26e-5: its weight peaks at pixel (35, 23), where
+    rho3d of a homography with |det| / row norms 1.5e-5 loses ~3.5e-4
+    relative in float32), the Gaussian is edge-on and the port is nearer
+    float64 than the JAX package (6.8e-6 against 2.9e-5): float32 cannot
+    resolve that weight to 2e-5, and the JAX package misses by more."""
+    c = weights_case
+    d_port, d_jax = np.abs(c["port"] - c["f64"]), np.abs(c["jax"] - c["f64"])
+    assert d_port.max() <= 2e-5, d_port.max()
+    apart = np.abs(c["port"] - c["jax"]) > 2e-5
+    assert np.flatnonzero(apart).tolist() == [68]
+    assert (c["ratio"][apart] < 2.0**-24 / 1e-3).all(), c["ratio"][apart]
+    assert (d_port[apart] < d_jax[apart]).all()
+    assert c["f64"].max() > 0.5 and (c["port"] > 0).sum() > 50

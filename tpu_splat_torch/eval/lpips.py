@@ -31,7 +31,8 @@ def gmsd(a, b) -> float:
     [0,1]. Weight-free perceptual distance: Prewitt gradient magnitudes on a
     2x-downsampled luminance channel, per-pixel similarity, then its std.
     Serves as the LPIPS stand-in when no pretrained backbone exists on
-    disk."""
+    disk. Takes numpy arrays or tensors on any device."""
+    a, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x for x in (a, b))
     a = np.asarray(a, np.float32)
     b = np.asarray(b, np.float32)
     # luminance in [0,255] like the original formulation (c tuned for it)
