@@ -99,11 +99,26 @@ the initial stage and never in recover_vol), every loss finite, the train
 PSNR rising (recover_vol: the loss falling), each artifact written with
 the card's name; 13d the parity CLI's three cases
 (`tpu_splat_torch/tools/parity.py:run`) at 256x256.
+Phase 14 drives the measurement scripts: 14a the bench CLI
+(`python -m tpu_splat_torch.scripts.bench`) in a process of its own on the
+synthetic cloud and on `artifacts/valid_torch_scratch_state.ply` tiled to
+1M (its capacity probed), each fwd+bwd and `--forward_only`, at 1088x1920:
+exactly one JSON line with a positive value, no instance over the capacity,
+and each timed call's launches (#1-#4 once in fwd+bwd, #1 alone
+forward-only); 14b the bench's fwd+bwd at 256x256 on 20,000 surfels, the
+bench's switches and exact f32 rows, on the kernels against the plain
+versions (the loss, the frame, every gradient leaf of the whole call
+without the pixels whose reflected ray reads another env-map cell in the
+two frames) and against the plain backward kernels on the kernel
+forward's outputs (every gradient leaf); 14c the profiler
+(`python -m tpu_splat_torch.tools.profile`) with all seven sections at
+bench scale, every row finite and above 0.
 Each phase prints one line a step; every failed check raises,
 so the exit code is not 0. Details go to
 chiprun_out/chip_smoke.json. The last four lines are phases 9 and 10's
 forward launches by step, phase 11's volumetric fwd+bwd launches, phase
-12's per-rank step launches and phase 13's launches by task, the kernels'
+12's per-rank step launches, phase 13's launches by task and phase 14's
+launches in one timed call of each bench variant, the kernels'
 JSON record (launches over the 4 timed tight training steps), the card's
 name and power limit as nvidia-smi reports them, and the result line.
 
@@ -117,6 +132,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -127,6 +143,9 @@ import numpy as np
 
 from tpu_splat_torch.eval.parity import (  # the holds 11b shares with tools/parity.py
     FLIPS_PER_4096, KNIFE_BAND, hold_images, knife_margins, patched_blend)
+# the bench cloud and the trained snapshot's tiling (serve_ab.py and
+# kernel_ab.py read them as chip_smoke.build_state / tile_checkpoint)
+from tpu_splat_torch.scripts.bench import build_state, tile_checkpoint
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -318,6 +337,24 @@ P13_EVENTS = {"reset_opacity", "opacity_lr_pulse", "normal_prop", "color_sabotag
               "double_env_map"}
 P13_WINDOW = 25  # steps averaged at each end of a run: the PSNR rises, the loss falls
 
+# the measurement scripts: the bench CLI
+# (tpu_splat_torch/scripts/bench.py) on the synthetic cloud and the port's
+# trained snapshot tiled to 1M, fwd+bwd and forward-only, each in a process
+# of its own; the bench's fwd+bwd on the kernels against the plain versions
+# at the JAX profiler's small scale; the profiler's seven sections
+P14_CHECKPOINT = os.path.join("artifacts", "valid_torch_scratch_state.ply")
+P14_RUNS = {"synthetic": [], "synthetic forward-only": ["--forward_only"],
+            "trained": ["--checkpoint", P14_CHECKPOINT],
+            "trained forward-only": ["--checkpoint", P14_CHECKPOINT, "--forward_only"]}
+P14_KEYS = ("metric", "value", "unit", "vs_baseline")
+P14_TIMEOUT = 300  # seconds a subprocess may take
+P14_SMALL = dict(height=256, width=256, n=20_000, capacity=1 << 15)  # tools/profile.py's CPU scale
+P14_SMALL_CAPS = dict(max_tiles_per_gaussian=16, max_instances=1 << 16, tile_depth=256, chunk=16)
+P14_LOSS_TOL = 2e-5  # the kernel path's loss against the plain versions', absolute
+P14_GRAD_TOL = 1e-3  # each gradient leaf, of the plain path's max |g|
+P14_SCAN_DEPTH = 2048  # the float64 scan blend's tile depth: the small scene's deepest tile fits
+P14_SECTIONS = ("full", "stages", "binning", "regroup", "env", "render", "tail")
+
 
 def log(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
@@ -329,47 +366,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def build_state(n, capacity, seed=0, scale_mu=-4.8, scale_sigma=0.5, cubemap=64,
-                device="cuda"):
-    """The bench cloud of bench.py:22 build_state, drawn with numpy: 1M
-    surface-aligned surfels, SH degree 3, a 64^2 cubemap."""
-    from tpu_splat_torch.core.sh import num_sh_coeffs, rgb_to_sh
-    from tpu_splat_torch.model.convert import state_from_numpy
-
-    rng = np.random.default_rng(seed)
-    m = num_sh_coeffs(3)
-
-    def pad(a, fill=0.0):
-        out = np.full((capacity,) + a.shape[1:], fill, dtype=np.float32)
-        out[:n] = a
-        return out
-
-    xyz = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
-    scaling = (scale_mu + scale_sigma * rng.normal(size=(n, 2))).astype(np.float32)
-    rot = (
-        np.stack([np.ones(n), 0.4 * np.sin(1.3 * xyz[:, 0]),
-                  0.4 * np.cos(1.1 * xyz[:, 1]), 0.4 * np.sin(0.9 * xyz[:, 2])], axis=1)
-        + 0.05 * rng.normal(size=(n, 4))
-    ).astype(np.float32)
-    sh = np.zeros((n, m, 3), np.float32)
-    sh[:, 0] = rgb_to_sh(rng.uniform(0, 1, (n, 3)))
-    opacity = rng.uniform(-1, 2, (n, 1)).astype(np.float32)
-    alive = np.zeros(capacity, bool)
-    alive[:n] = True
-    rot_p = pad(rot)
-    rot_p[n:, 0] = 1.0
-    d = dict(
-        xyz=pad(xyz), features_dc=pad(sh[:, :1]), features_rest=pad(sh[:, 1:]),
-        scaling=pad(scaling, fill=-10.0), rotation=rot_p,
-        opacity=pad(opacity, fill=-10.0),
-        refl=pad(np.full((n, 1), -2.2, np.float32), fill=-10.0),
-        texture=rng.uniform(-0.5, 0.5, (6, 3, cubemap, cubemap)).astype(np.float32),
-        fail_value=np.zeros(3, np.float32), alive=alive,
-        active_sh_degree=3, max_sh_degree=3,
-    )
-    return state_from_numpy(d, device=device)
 
 
 def small_scene(n, seed, device, opacity_logit=None):
@@ -390,54 +386,6 @@ def small_scene(n, seed, device, opacity_logit=None):
         active_sh_degree=1, max_sh_degree=1,
     )
     return state_from_numpy(d, device=device)
-
-
-def tile_checkpoint(state, target_n, capacity, device):
-    """bench.py:76 build_state_from_checkpoint on a port state: replicate
-    the trained scene on a jittered grid of rigid offsets up to target_n
-    surfels, then rescale it into the bench camera's view box."""
-    from tpu_splat_torch.model.convert import state_from_numpy
-
-    alive = state.alive.cpu().numpy()
-    n0 = int(alive.sum())
-    reps = max(1, int(np.ceil(target_n / n0)))
-    rng = np.random.default_rng(0)
-    host = lambda t: t.cpu().numpy()
-    xyz0 = host(state.xyz)[alive]
-    center = xyz0.mean(axis=0)
-    extent = (xyz0.max(axis=0) - xyz0.min(axis=0)).max()
-    side = int(np.ceil(reps ** (1 / 3)))
-    cells = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
-    offs = (cells[:reps] - cells[:reps].mean(0)) * extent * 0.55
-    offs += 0.07 * extent * rng.normal(size=offs.shape)
-
-    def tile(a):
-        return np.concatenate([host(a)[alive]] * reps)[:target_n]
-
-    xyz = np.concatenate([xyz0 - center + o for o in offs])[:target_n]
-    scale = 2.4 / max(np.abs(xyz).max(), 1e-6)
-    xyz = xyz * scale
-    n = xyz.shape[0]
-
-    def pad(a, fill=0.0):
-        out = np.full((capacity,) + a.shape[1:], fill, dtype=np.float32)
-        out[:n] = a
-        return out
-
-    rot = pad(tile(state.rotation))
-    rot[n:, 0] = 1.0
-    alive_out = np.zeros(capacity, bool)
-    alive_out[:n] = True
-    d = dict(
-        xyz=pad(xyz), features_dc=pad(tile(state.features_dc)),
-        features_rest=pad(tile(state.features_rest)),
-        scaling=pad(tile(state.scaling) + np.log(scale), fill=-10.0), rotation=rot,
-        opacity=pad(tile(state.opacity), fill=-10.0), refl=pad(tile(state.refl), fill=-10.0),
-        texture=host(state.env.texture), fail_value=host(state.env.fail_value),
-        alive=alive_out, active_sh_degree=state.active_sh_degree,
-        max_sh_degree=state.max_sh_degree,
-    )
-    return state_from_numpy(d, device=device), n
 
 
 def captured_kernel_inputs(state, cam, cfg, bg):
@@ -3032,6 +2980,233 @@ def phase13_step_stages(dev) -> dict:
     return stages
 
 
+@contextlib.contextmanager
+def plain_kernels(names=TRAIN_KERNELS):
+    """The named kernels of the training path replaced by their plain
+    PyTorch versions, which run on any device and count no launch."""
+    from tpu_splat_torch.kernels import cubemap_accum as ca
+    from tpu_splat_torch.kernels import segment_reduce as sr
+    from tpu_splat_torch.kernels import tile_blend as tb
+
+    mods = dict(tile_blend_forward=tb, tile_blend_backward=tb, segment_sum_ranges=sr,
+                cubemap_tap_accumulate=ca)
+    orig = {n: getattr(mods[n], n) for n in names}
+    for n in names:
+        setattr(mods[n], n, getattr(mods[n], f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(mods[n], n, fn)
+
+
+def p14_bench_run(label: str, args: list) -> dict:
+    """14a. One bench CLI run in a process of its own: exactly one result
+    line (every other line starts with "#"), the JSON script's four keys,
+    a positive value, no instance over the capacity, and the launches of
+    each timed call: #1-#4 once in fwd+bwd, #1 alone forward-only."""
+    from tpu_splat_torch.scripts.bench import KERNELS
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpu_splat_torch.scripts.bench", *args], cwd=HERE,
+                       capture_output=True, text=True, timeout=P14_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"14a {label}: exit {r.returncode}\n{r.stderr[-3000:]}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    results = [ln for ln in lines if not ln.startswith("#")]
+    if len(results) != 1:
+        raise AssertionError(f"14a {label}: {len(results)} result lines: {results[:3]}")
+    rec = json.loads(results[0])
+    if (any(k not in rec for k in P14_KEYS) or not math.isfinite(rec["value"])
+            or rec["value"] <= 0 or rec["instances"] > rec["capacity"]):
+        raise AssertionError(f"14a {label}: {rec}")
+    forward_only = "--forward_only" in args
+    want = {k: int(k == "tile_blend_forward" or not forward_only) for k in KERNELS}
+    bad = [(k, n) for k in KERNELS for n in rec["launches"][k] if n != want[k]]
+    if bad or any(len(rec["launches"][k]) != rec["iters"] for k in KERNELS):
+        raise AssertionError(f"14a {label}: launches {rec['launches']}, want {want} a call")
+    if "--checkpoint" in args:
+        probe = [m for m in map(re.compile(r"# trained load: (\d+) instances, cap (\d+)$").match,
+                                lines) if m]
+        if len(probe) != 1:
+            raise AssertionError(f"14a {label}: no probe line in {lines[:5]}")
+        n_inst, cap = (int(x) for x in probe[0].groups())
+        if n_inst > cap or cap != rec["capacity"]:
+            raise AssertionError(f"14a {label}: probe {n_inst} / {cap}, capacity "
+                                 f"{rec['capacity']}")
+        rec["probe"] = dict(instances=n_inst, capacity=cap)
+    rec["seconds"] = seconds
+    log(f"14a bench {label}", value=rec["value"], vs_baseline=rec["vs_baseline"],
+        ms_median=f"{rec['ms_median']:.3f}", ms_p10=f"{rec['ms_p10']:.3f}",
+        ms_p90=f"{rec['ms_p90']:.3f}", instances=rec["instances"], capacity=rec["capacity"],
+        launches=json.dumps({k: v[0] for k, v in rec["launches"].items()}).replace(" ", ""),
+        seconds=f"{seconds:.1f}")
+    return rec
+
+
+def p14_kernels_vs_plain(dev) -> dict:
+    """14b. The bench's fwd+bwd at the JAX profiler's small scale, under the
+    bench's switches and with exact f32 rows, on the kernels (each launched
+    once) against the same call on the plain versions on the card: the loss
+    within P14_LOSS_TOL, the frame within TOL but at the knife edge
+    (FLIPS_PER_4096), and every gradient leaf within P14_GRAD_TOL of the
+    plain leaf's max |g|, for the whole call and for the plain backward
+    kernels on the kernel forward's outputs. The whole call leaves out of
+    the loss, on both sides, the pixels whose reflected ray reads another
+    env-map cell in the two frames (`env_cells`): the sample's gradient
+    jumps between cells, so there a last-bit difference in the normal
+    decides which texel pair the pixel's gradient comes from. Each such
+    pixel's normals must agree within TOL; the float64 scan blend says
+    which frame's cell it reads (exact rows only: the scan blend has no
+    bf16 content rows)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_splat_torch.eval.parity import env_cells, env_texel_coords
+    from tpu_splat_torch.kernels import LAUNCHES
+    from tpu_splat_torch.raster.config import production_config
+    from tpu_splat_torch.renderer import render
+    from tpu_splat_torch.scripts import bench
+
+    sz = P14_SMALL
+    state = build_state(sz["n"], sz["capacity"], device=dev)
+    cam = bench.bench_camera(sz["height"], sz["width"], dev)
+    gt = bench.bench_target(sz["height"], sz["width"], dev)
+    bg = torch.zeros(3, device=dev)
+    prod = production_config(**P14_SMALL_CAPS)
+    res_env = state.env.texture.shape[-1]
+
+    def run(cfg, names=()):
+        with plain_kernels(names):
+            LAUNCHES.clear()
+            loss, grads, out = bench.fwd_bwd(state, cam, cfg, gt, bg)
+            return loss, grads, out, {k: LAUNCHES[k] for k in TRAIN_KERNELS}
+
+    def grads_kept(cfg, keep, names=()):
+        """The bench's fwd+bwd with the L1 loss over the `keep` pixels."""
+        params = {k: v.detach().requires_grad_(True) for k, v in state.param_pytree().items()}
+        with plain_kernels(names), torch.enable_grad():
+            r = render(state.with_params(params), cam, cfg, bg, initial_stage=False).render
+            loss = torch.sum(torch.abs(r - gt) * keep[..., None]) / r.numel()
+            got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        return {k: torch.zeros_like(x) if g is None else g
+                for (k, x), g in zip(params.items(), got)}
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+                for k in b}
+
+    out = {}
+    for name, cfg in (("production", prod),
+                      ("exact", dataclasses.replace(prod, bf16_grads=False, bf16_feats=False))):
+        run(cfg)  # warm-up
+        loss_k, g_k, out_k, launched = run(cfg)
+        loss_p, g_p, out_p, plain_launched = run(cfg, TRAIN_KERNELS)
+        _, g_b, _, bwd_launched = run(cfg, TRAIN_KERNELS[1:])
+        px = (out_k.render.detach() - out_p.render.detach()).abs().amax(-1)
+        n_k, n_p = out_k.normal.detach(), out_p.normal.detach()
+        cells_k, cells_p = env_cells(cam, n_k, res_env), env_cells(cam, n_p, res_env)
+        knife = (cells_k != cells_p).any(-1)
+        knives = []
+        if bool(knife.any()):
+            g_kk = grads_kept(cfg, (~knife).float())
+            g_pk = grads_kept(cfg, (~knife).float(), TRAIN_KERNELS)
+            cells_64 = None
+            if not cfg.bf16_feats:  # the float64 scan blend: which frame's cell
+                xcfg = dataclasses.replace(cfg, backend="xla", tile_depth=P14_SCAN_DEPTH)
+                with patched_blend(dtype=torch.float64), torch.no_grad():
+                    o64 = render(state, cam, xcfg, bg, initial_stage=False)
+                if int(o64.max_tile_count) > P14_SCAN_DEPTH:
+                    raise AssertionError(f"14b {name}: the scan blend's depth "
+                                         f"{P14_SCAN_DEPTH} < {int(o64.max_tile_count)}")
+                cells_64 = env_cells(cam, o64.normal, res_env)
+                xy_64 = env_texel_coords(cam, o64.normal, res_env)[1]
+            xy_k, xy_p = (env_texel_coords(cam, n, res_env)[1] for n in (n_k, n_p))
+            for y, x in knife.nonzero().tolist():
+                side = None if cells_64 is None else (
+                    "kernel" if torch.equal(cells_64[y, x], cells_k[y, x]) else
+                    "plain" if torch.equal(cells_64[y, x], cells_p[y, x]) else "neither")
+                knives.append(dict(y=y, x=x, cell_kernel=cells_k[y, x].tolist(),
+                                   cell_plain=cells_p[y, x].tolist(),
+                                   texel_kernel=xy_k[y, x].tolist(),
+                                   texel_plain=xy_p[y, x].tolist(),
+                                   texel_float64=None if cells_64 is None else
+                                   xy_64[y, x].tolist(),
+                                   normal_max_abs_err=float((n_k[y, x] - n_p[y, x]).abs().max()),
+                                   float64_reads=side))
+        else:
+            g_kk, g_pk = g_k, g_p
+        errs, whole = rel(g_k, g_b), rel(g_kk, g_pk)
+        res = dict(loss=float(loss_k), loss_err=abs(float(loss_k) - float(loss_p)),
+                   frame_max_abs_err=float(px.max()), frame_px_over_tol=int((px > TOL).sum()),
+                   grad_rel_err=errs, grad_rel_err_whole=whole, grad_tol=P14_GRAD_TOL,
+                   env_knife_pixels=knives,
+                   # recorded: the whole call with the env-knife pixels in the loss
+                   grad_rel_err_whole_all_pixels=rel(g_k, g_p),
+                   launches=launched,
+                   plain_launches=plain_launched, plain_backward_launches=bwd_launched,
+                   instances=int(out_k.num_instances), max_instances=cfg.max_instances, **sz)
+        want_bwd = {k: int(k == "tile_blend_forward") for k in TRAIN_KERNELS}
+        if (any(n != 1 for n in launched.values()) or any(plain_launched.values())
+                or bwd_launched != want_bwd
+                or int(out_k.num_instances) != int(out_p.num_instances)
+                or res["instances"] > cfg.max_instances or res["loss_err"] > P14_LOSS_TOL
+                or res["frame_px_over_tol"] + len(knives) > FLIPS_PER_4096 * px.numel() / 4096
+                or any(not k["normal_max_abs_err"] <= TOL for k in knives)
+                or any(not e <= P14_GRAD_TOL for e in list(errs.values()) + list(whole.values()))):
+            raise AssertionError(f"14b bench kernels vs plain, {name}: {res}")
+        log("14b bench kernels vs plain", switches=name, loss_err=f"{res['loss_err']:.3g}",
+            frame_px_over_tol=res["frame_px_over_tol"], env_knife_pixels=len(knives),
+            worst_grad_whole=f"{max(whole.values()):.3g}",
+            worst_grad_whole_all_pixels=f"{max(res['grad_rel_err_whole_all_pixels'].values()):.3g}",
+            worst_grad_plain_bwd=f"{max(errs.values()):.3g}", instances=res["instances"],
+            launches=json.dumps(launched).replace(" ", ""))
+        for k in knives:
+            log("14b env knife", switches=name, **{a: json.dumps(b).replace(" ", "")
+                                                   for a, b in k.items()})
+        out[name] = res
+    return out
+
+
+def p14_profile() -> dict:
+    """14c. The profiler's seven sections at bench scale in a process of its
+    own: each section prints its rows, each row finite and above 0."""
+    out = os.path.join(OUT_DIR, "p14_profile.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpu_splat_torch.tools.profile", *P14_SECTIONS,
+                        "--json", out], cwd=HERE, capture_output=True, text=True,
+                       timeout=P14_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"14c profile: exit {r.returncode}\n{r.stderr[-3000:]}")
+    with open(out) as f:
+        rows = json.load(f)["sections"]
+    bad = [(s, x["name"]) for s in P14_SECTIONS for x in rows.get(s, [])
+           if not (math.isfinite(x["value"]) and x["value"] > 0)]
+    empty = [s for s in P14_SECTIONS if not rows.get(s)]
+    if bad or empty or any(f"--- {s} ---" not in r.stdout for s in P14_SECTIONS):
+        raise AssertionError(f"14c profile: rows not above 0 {bad}, sections empty {empty}")
+    log("14c profile", seconds=f"{seconds:.1f}", **{s: len(rows[s]) for s in P14_SECTIONS})
+    return dict(seconds=seconds, sections=rows)
+
+
+def phase14_measurement(dev, detail) -> dict:
+    """14a the bench CLI's four variants, 14b its fwd+bwd on the kernels
+    against the plain versions, 14c the profiler. -> the launches of one
+    timed bench call of each variant."""
+    t0 = time.perf_counter()
+    runs = {label: p14_bench_run(label, args) for label, args in P14_RUNS.items()}
+    small = p14_kernels_vs_plain(dev)
+    prof = p14_profile()
+    seconds = time.perf_counter() - t0
+    detail["measurement"] = dict(bench=runs, kernels_vs_plain=small, profile=prof,
+                                 seconds=seconds)
+    log("14 done", seconds=f"{seconds:.1f}")
+    return {label: {k: v[0] for k, v in rec["launches"].items()} for label, rec in runs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3833,6 +4008,10 @@ def main() -> int:
     p13_launches = phase13_certificate(dev, detail)
     log("13 done", seconds=f"{time.perf_counter() - t13:.1f}")
 
+    # 14. the measurement scripts: the bench CLI and the profiler
+    torch.cuda.empty_cache()
+    p14_launches = phase14_measurement(dev, detail)
+
     # the kernels' record: launches over the 4 timed steps of the newest
     # main path (the tight-culling step; segment_sum_rows is on no path)
     expand_sum = {f: sum(r[f] for r in list(expand.values())[:2])
@@ -3882,7 +4061,8 @@ def main() -> int:
                       "phase10_launches": {"tile_blend_forward": mesh_launches},
                       "phase11_volumetric_launches": vol_launches,
                       "phase12_launches_per_rank": p12_launches,
-                      "phase13_launches": p13_launches}))
+                      "phase13_launches": p13_launches,
+                      "phase14_bench_launches_per_call": p14_launches}))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -102,9 +102,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpu_splat'))\n"
         "new = {'tpu_splat_torch.scripts.validate_e2e', 'tpu_splat_torch.eval.parity',\n"
         "       'tpu_splat_torch.tools', 'tpu_splat_torch.tools.parity',\n"
-        "       'tpu_splat_torch.tools.scaling_table'}\n"
+        "       'tpu_splat_torch.tools.scaling_table', 'tpu_splat_torch.scripts.bench',\n"
+        "       'tpu_splat_torch.tools.profile'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
-        "sys.exit(1 if bad or new - set(mods) or len(mods) < 87 else 0)\n"
+        "sys.exit(1 if bad or new - set(mods) or len(mods) < 89 else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -112,7 +113,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["state", "camera", "orbit_camera", "extract_mesh", "view",
-                                   "test_rasterizer", "validate_e2e", "parity"])
+                                   "test_rasterizer", "validate_e2e", "parity", "bench",
+                                   "profile"])
 def test_cuda_request_without_cuda_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     d = _scene(8, 0)
@@ -130,6 +132,9 @@ def test_cuda_request_without_cuda_raises(monkeypatch, entry):
         # the convergence certificate and the parity CLI: the card unless --device cpu
         "validate_e2e": lambda: _script("validate_e2e").main(["--task", "recover"]),
         "parity": lambda: importlib.import_module("tpu_splat_torch.tools.parity").main([]),
+        # the measurement scripts: the card unless --device cpu
+        "bench": lambda: _script("bench").main([]),
+        "profile": lambda: importlib.import_module("tpu_splat_torch.tools.profile").main([]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

@@ -66,6 +66,31 @@ def hold_images(got, want, label, near_knife=None):
     return res
 
 
+def env_texel_coords(cam, normal: torch.Tensor, resolution: int):
+    """Where each pixel's reflected ray reads a resolution^2 cubemap, as
+    `sample_cubemap`'s filter computes it from the world normal map:
+    (face [H, W], [H, W, 2] texel coordinates whose floor is the bilinear
+    cell's corner)."""
+    from tpu_splat_torch.core.graphics import camera_rays, reflect
+    from tpu_splat_torch.envmap.cubemap import _face_uv
+
+    face, u, v = _face_uv(reflect(camera_rays(cam), normal))
+    v = -v
+    su = (u * 0.5 + 0.5) * resolution
+    sv = (v * 0.5 + 0.5) * resolution
+    return face.long(), torch.stack([su - 0.5, sv - 0.5], -1)
+
+
+def env_cells(cam, normal: torch.Tensor, resolution: int) -> torch.Tensor:
+    """[H, W, 3] (face, x0, y0): the bilinear cell each pixel's reflected ray
+    reads (`env_texel_coords`). The sample's gradient with respect to the
+    direction jumps where a ray crosses from one cell to the next, so two
+    frames whose normals differ in the last bit can send a pixel's gradient
+    to different texel pairs: compare their cells."""
+    face, xy = env_texel_coords(cam, normal, resolution)
+    return torch.cat([face[..., None], torch.floor(xy).long()], -1)
+
+
 @contextlib.contextmanager
 def patched_blend(dtype=None, record=None):
     """rasterize's scan blend with its float inputs cast to `dtype` and its

@@ -29,14 +29,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
 
 from tpu_splat_torch.core import f32
-from tpu_splat_torch.core.device import resolve_device
+from tpu_splat_torch.core.device import device_names, resolve_device
 from tpu_splat_torch.core.sh import num_sh_coeffs, rgb_to_sh
 from tpu_splat_torch.data.synthetic import orbit_camera
 from tpu_splat_torch.envmap.cubemap import CubemapParams
@@ -320,19 +319,6 @@ def train_loop(step_fn, ts, opt, cams, gts, n_views, bg, log, curve, draws=None,
                   f"alive {int(aux.n_alive)} inst {int(aux.num_instances)} "
                   f"({time.time() - t0:.0f}s)", flush=True)
     return ts, time.time() - t0
-
-
-def device_names(dev: torch.device) -> tuple[str, str]:
-    """-> (backend, device) for the artifact: "gpu" and the card's
-    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` line, or
-    "cpu" twice."""
-    if dev.type != "cuda":
-        return "cpu", "cpu"
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    out = subprocess.run(
-        ["nvidia-smi", "-i", str(idx), "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
-    return "gpu", out.stdout.strip().splitlines()[0]
 
 
 def recover_state(gt_state: GaussianState, rng) -> GaussianState:
