@@ -1,0 +1,6 @@
+"""ms a step in the preprocess (span preprocess)."""
+from splatbench.metrics._read import span_ms
+
+
+def read(t):
+    return span_ms(t, "preprocess")
