@@ -7,7 +7,8 @@ the mask, and clone/split children are placed into free rows by a
 prefix-sum ranking (no allocation; candidates beyond the free rows are
 reported as `overflow`, for capacity growth). In order, as densify_and_prune
 :551-577: weight pruning (mean max blend weight < 0.01), clone (hot and
-small) and split (hot and large: two children drawn on the surfel, scales
+small) and split (hot and large: two children drawn on the Gaussian's
+scale axes, two for a surfel and three for a volumetric Gaussian, scales
 / (0.8 N), the original dies), world-size pruning, then every statistic
 reset and the Adam moments of new rows zeroed. The split draws come in as
 `eps`, so both packages can be fed the same numbers.
@@ -81,7 +82,7 @@ def densify_and_prune(
     state: GaussianState,
     opt_state: AdamState,
     stats: DensifyStats,
-    eps: torch.Tensor,  # [N, P, 2] standard normal draws for the split children
+    eps: torch.Tensor,  # [N, P, k] standard normal draws for the split children, k axes
     grad_threshold: float,
     percent_dense: float,
     extent: float,
@@ -94,7 +95,7 @@ def densify_and_prune(
     read: the counts come back as tensors)."""
     P = state.capacity
     alive = state.alive
-    scaling = f32.exp(state.scaling)  # [P, 2]
+    scaling = f32.exp(state.scaling)  # [P, k]
     max_scale = scaling.max(-1).values
     zero = torch.zeros_like(max_scale)
 
@@ -117,11 +118,13 @@ def densify_and_prune(
     keep = survivors & ~split_sel & ~big_ws
 
     # candidate rows: [clone children; split children A; split children B].
-    # A split child is R[:, :, :2] @ (eps * scale) + xyz: the surfel's 2D
-    # stds, zero third axis, rotated
+    # A split child is R[:, :, :k] @ (eps * scale) + xyz: the stds of the
+    # k scale axes (a surfel's third axis is zero), rotated
     R = quat_to_rotmat(state.rotation)  # [P, 3, 3]
-    e = eps.to(state.xyz.device) * scaling[None]  # [N, P, 2]
+    e = eps.to(state.xyz.device) * scaling[None]  # [N, P, k]
     offs = R[None, :, :, 0] * e[..., 0:1] + R[None, :, :, 1] * e[..., 1:2]  # [N, P, 3]
+    for j in range(2, e.shape[-1]):
+        offs = offs + R[None, :, :, j] * e[..., j:j + 1]
     split_xyz = state.xyz[None] + offs
     split_scaling = f32.log(scaling / (0.8 * N))
     cand_mask = torch.cat([clone_sel, split_sel, split_sel])  # [3P]

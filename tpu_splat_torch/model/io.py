@@ -4,8 +4,10 @@ package's, byte for byte where the format allows).
 
 The PLY layout is the reference's binary-little-endian one (x,y,z,
 nx,ny,nz, f_dc_*, f_rest_* channel-major, opacity, refl, scale_0..1,
-rot_0..3). The cubemap rides beside it twice: `<model>.map.npz` (keys named
-as the reference state dict) and the reference's torch `<model>.map`.
+rot_0..3); a volumetric state adds scale_2 after scale_1, 3DGS's own
+layout, and a PLY with scale_2 loads as a volumetric state. The cubemap
+rides beside it twice: `<model>.map.npz` (keys named as the reference
+state dict) and the reference's torch `<model>.map`.
 
 A training checkpoint is one `.npz`: `leaf_i`, the JAX `TrainState`'s
 leaves in `jax.tree.flatten` order (`model/convert.py:
@@ -36,11 +38,11 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def _attribute_names(n_rest: int) -> list[str]:
+def _attribute_names(n_rest: int, n_scale: int) -> list[str]:
     names = ["x", "y", "z", "nx", "ny", "nz"]
     names += [f"f_dc_{i}" for i in range(3)]
     names += [f"f_rest_{i}" for i in range(n_rest * 3)]
-    names += ["opacity", "refl", "scale_0", "scale_1"]
+    names += ["opacity", "refl"] + [f"scale_{i}" for i in range(n_scale)]
     names += [f"rot_{i}" for i in range(4)]
     return names
 
@@ -56,7 +58,7 @@ def save_ply(state: GaussianState, path: str):
     f_rest = _host(state.features_rest)[alive].transpose(0, 2, 1).reshape(n, -1)
     rows = [_host(getattr(state, k))[alive] for k in ("opacity", "refl", "scaling", "rotation")]
     attrs = np.concatenate([xyz, np.zeros_like(xyz), f_dc, f_rest, *rows], axis=1).astype("<f4")
-    names = _attribute_names(state.features_rest.shape[1])
+    names = _attribute_names(state.features_rest.shape[1], state.scaling.shape[1])
     if attrs.shape[1] != len(names):
         raise ValueError(f"{attrs.shape[1]} attributes for {len(names)} names")
 
@@ -155,7 +157,7 @@ def load_ply(
     f_rest = np.stack([cols[k] for k in rest_names], axis=1).reshape(n, 3, n_rest)
     opacity = cols["opacity"][:, None]
     refl = cols["refl"][:, None] if "refl" in cols else np.full((n, 1), -4.6)
-    scale = np.stack([cols["scale_0"], cols["scale_1"]], axis=1)
+    scale = np.stack([cols[f"scale_{i}"] for i in range(3 if "scale_2" in cols else 2)], axis=1)
     rot = np.stack([cols[f"rot_{i}"] for i in range(4)], axis=1)
 
     def pad(a, fill=0.0):

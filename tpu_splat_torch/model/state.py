@@ -1,7 +1,8 @@
 """Gaussian model state with static capacity and an `alive` mask.
 
 Port of tpu_splat/model/state.py. Raw (pre-activation) parameters as the
-reference: scaling = log(scale) [P,2] (surfels are disks), opacity/refl =
+reference: scaling = log(scale) [P,2] for 2DGS surfels (disks) or [P,3]
+for volumetric 3DGS Gaussians (3DGS-DR; `volumetric`), opacity/refl =
 logit [P,1], rotation = unnormalized quaternion (w,x,y,z) [P,4],
 features_dc [P,1,3], features_rest [P,(D+1)^2-1,3]. Rows past the live
 Gaussians are dead (`alive` False) and render nothing. `param_pytree` /
@@ -35,7 +36,7 @@ class GaussianState:
     xyz: torch.Tensor  # [P,3]
     features_dc: torch.Tensor  # [P,1,3]
     features_rest: torch.Tensor  # [P,M-1,3]
-    scaling: torch.Tensor  # [P,2] log-scale
+    scaling: torch.Tensor  # [P,2] log-scale (surfels) or [P,3] (volumetric)
     rotation: torch.Tensor  # [P,4] quat (w,x,y,z)
     opacity: torch.Tensor  # [P,1] logit
     refl: torch.Tensor  # [P,1] logit
@@ -51,6 +52,11 @@ class GaussianState:
     @property
     def device(self) -> torch.device:
         return self.xyz.device
+
+    @property
+    def volumetric(self) -> bool:
+        """Three scale axes: the volumetric 3DGS family, else surfels."""
+        return self.scaling.shape[-1] == 3
 
     @property
     def num_alive(self) -> int:
@@ -133,10 +139,12 @@ def init_from_pcd(
     cubemap_resolution: int = 128,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    volumetric: bool = False,
 ) -> GaussianState:
     """Initialize from a point cloud (reference create_from_pcd,
     scene/gaussian_model.py:160-187): DC SH from RGB, log-scales from the
-    3-NN mean distance (2 axes), random quaternions, opacity 0.1, refl
+    3-NN mean distance, log(sqrt(dist2)) on each of 2 axes (3 with
+    `volumetric`, 3DGS's own init), random quaternions, opacity 0.1, refl
     1e-3. The quaternions are numpy draws from `seed`, as the JAX package's;
     the cubemap texture is drawn by a torch.Generator seeded with `seed`
     (jax.random's bits cannot be reproduced)."""
@@ -147,7 +155,7 @@ def init_from_pcd(
     m = num_sh_coeffs(max_sh_degree)
     rng = np.random.default_rng(seed)
     dist2 = np.clip(_knn_mean_sq_dist(points.astype(np.float32)), 1e-7, None)
-    log_scale = np.log(np.sqrt(dist2))[:, None].repeat(2, axis=1)
+    log_scale = np.log(np.sqrt(dist2))[:, None].repeat(3 if volumetric else 2, axis=1)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
 

@@ -70,14 +70,22 @@ def rasterize(
     """mode="surfel": 2DGS disks (scales [P,2], the production path).
     mode="volumetric": classic 3DGS EWA splats (scales [P,3]), the
     per-Gaussian input `normals` blended (default +z); `antialiasing`
-    scales opacity by the Mip-Splatting factor. `cfg.backend` picks the
-    blend: the tile kernels ("auto", "pallas") or the scan blend ("xla").
+    scales opacity by the Mip-Splatting factor; `screen_offset` is
+    3DGS's means2D probe; it takes neither `hom_precomp` nor
+    `cfg.tight_culling` (whose per-column conic is the surfels').
+    `cfg.backend` picks the blend: the tile kernels ("auto", "pallas") or
+    the scan blend ("xla").
     With a `mesh` every rank of it calls this on the same replicated
     inputs and gets the whole frame; the tile kernels then run on its slab
     of tile rows (`rasterize_tiles_sharded`), the scan blend on its block
     of tiles. Runs on the device the inputs live on."""
     if mode not in ("surfel", "volumetric"):
         raise ValueError(f"mode must be 'surfel' or 'volumetric', not {mode!r}")
+    if mode == "volumetric" and hom_precomp is not None:
+        raise ValueError("hom_precomp is a surfel homography: mode='volumetric' takes none")
+    if mode == "volumetric" and cfg.tight_culling:
+        raise ValueError("tight culling bins by the surfel conic: volumetric Gaussians "
+                         "bin by their rect (tight_culling=False)")
     full_precision_matmul()
     H, W = camera.height, camera.width
     P = means3d.shape[0]
@@ -87,10 +95,9 @@ def rasterize(
     with stage("preprocess"):
         # the preprocess VJP spans from its outputs' gradients to its inputs'
         # (opacity among them: the volumetric preprocess rescales it)
-        means3d, scales, rotations, opacity, sh, screen_offset, hom_precomp = backward_edge(
-            "preprocess_vjp", "end", means3d, scales, rotations, opacity, sh, screen_offset,
-            hom_precomp
-        )
+        means3d, scales, rotations, opacity, sh, screen_offset, hom_precomp, normals = (
+            backward_edge("preprocess_vjp", "end", means3d, scales, rotations, opacity, sh,
+                          screen_offset, hom_precomp, normals))
         if mode == "volumetric":
             if normals is None:
                 normals = torch.zeros((P, 3), dtype=means3d.dtype, device=means3d.device)
@@ -112,6 +119,7 @@ def rasterize(
                 colors=colors,
                 scale_modifier=scale_modifier,
                 antialiasing=antialiasing,
+                screen_offset=screen_offset,
             )
             opacity = opacity * opa_scale
         else:

@@ -13,7 +13,9 @@ homography for the surfel tile kernels,
 so the kernels' ray-splat solve gives s = A^-1 (pix - mu), rho3d = |s|^2 =
 d^T cov2D^-1 d (the EWA falloff), and the blended depth is the view z. The
 low-pass branch is switched off by a 2D mean far outside any pixel (rho2d
->> rho3d). Per-Gaussian `normals` are passed in and blended as given.
+>> rho3d). Per-Gaussian `normals` are passed in and blended as given. The
+`screen_offset` densify probe is 3DGS's `means2D`: added to the projected
+centre, so its gradient is the loss's gradient there (in NDC units).
 
 Rounded as the JAX package's jitted CPU code with the camera passed as an
 argument, as its render() is (core/f32.py), with the same bits on every
@@ -134,11 +136,15 @@ def preprocess_volumetric(
     colors: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
     antialiasing: bool = False,
+    screen_offset: torch.Tensor | None = None,
 ) -> tuple[Preprocessed, torch.Tensor]:
     """-> (Preprocessed with affine homographies, opacity_scale [P]).
 
     opacity_scale is 1, or the Mip-Splatting h_convolution_scaling when
-    `antialiasing` (multiply it into opacity before blending)."""
+    `antialiasing` (multiply it into opacity before blending).
+    `screen_offset` [P,2] (NDC) moves the blended centre by (W/2, H/2) times
+    it, after the tile rect is taken, as the surfel preprocess adds its
+    probe; absent, nothing changes."""
     tiles_y, tiles_x = tile_grid(height, width)
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
@@ -189,6 +195,15 @@ def preprocess_volumetric(
         dim=-1,
     ).to(torch.int32)
     area = (rect_max[:, 0] - rect_min[:, 0]) * (rect_max[:, 1] - rect_min[:, 1])
+
+    if screen_offset is not None:
+        # scaled by the (stop-gradient) depth hom[2][2] = z, as the surfel
+        # probe (raster/preprocess.py)
+        t22 = hom[..., 2, 2].detach()
+        probe = torch.zeros_like(hom)
+        probe[..., 0, 2] = 0.5 * width * t22 * screen_offset[..., 0]
+        probe[..., 1, 2] = 0.5 * height * t22 * screen_offset[..., 1]
+        hom = hom + probe
 
     valid = in_front & det_ok & (area > 0)
     radius = torch.where(valid, radius, torch.zeros_like(radius))

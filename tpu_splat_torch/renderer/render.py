@@ -8,6 +8,10 @@ render() also derives the expected depth and the depth-derived pseudo
 surface normal. Maps are channels-last [H, W, C]. Given a `Mesh`, every
 rank of it renders the whole frame: the rasterizer splits the tile grid
 over the ranks and the reflection's env pass their pixel rows.
+
+The state picks the rasterizer family: two scale columns are 2DGS surfels,
+three are volumetric 3DGS Gaussians (3DGS-DR), whose normal is their
+shortest axis turned toward the camera (`shortest_axis_normals`).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from tpu_splat_torch.core.graphics import (
     reflect,
 )
 from tpu_splat_torch.core.device import stage
+from tpu_splat_torch.core.transforms import quat_to_rotmat
 from tpu_splat_torch.dist.collectives import axis_size, gather_rows, replicated, shard_rows
 from tpu_splat_torch.envmap.cubemap import CubemapParams, sample_cubemap
 from tpu_splat_torch.model.state import GaussianState
@@ -79,6 +84,32 @@ def depth_to_normal(camera: Camera, depth: torch.Tensor) -> torch.Tensor:
     dy = points[1:-1, 2:] - points[1:-1, :-2]
     n = _safe_normalize(torch.linalg.cross(dx, dy, dim=-1), eps=1e-12)
     return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+def shortest_axis_normals(xyz: torch.Tensor, scales: torch.Tensor, rotation: torch.Tensor,
+                          camera_center: torch.Tensor) -> torch.Tensor:
+    """3DGS-DR's per-Gaussian normal: with R = quat_to_rotmat(rotation) and
+    k = argmin over the three scales, column k of R, negated where
+    dot(R[:, :, k], camera_center - xyz) < 0. The gradient reaches
+    `rotation` through the chosen column; the choice of k and the sign
+    carry none. [P,3] each -> [P,3] world normals."""
+    R = quat_to_rotmat(rotation)
+    with torch.no_grad():
+        k = torch.argmin(scales, dim=-1)
+    n = torch.gather(R, 2, k[:, None, None].expand(-1, 3, 1))[:, :, 0]
+    with torch.no_grad():
+        away = torch.sum(n * (camera_center - xyz), dim=-1) < 0
+        sign = torch.where(away, -1.0, 1.0).to(n.dtype)
+    return n * sign[:, None]
+
+
+def _family(state: GaussianState, scales: torch.Tensor, camera: Camera) -> dict:
+    """rasterize's mode and normals for the state's family."""
+    if not state.volumetric:
+        return dict(mode="surfel")
+    with stage("normal_axis"):
+        normals = shortest_axis_normals(state.xyz, scales, state.rotation, camera.camera_center)
+    return dict(mode="volumetric", normals=normals)
 
 
 def get_refl_color(env, camera: Camera, normal_map: torch.Tensor, mesh=None,
@@ -142,9 +173,10 @@ def render(
     else:
         scope = torch.ones((state.capacity,), dtype=torch.bool, device=dev)
 
+    scales = state.get_scaling()
     out = rasterize(
         state.xyz,
-        state.get_scaling(),
+        scales,
         state.rotation,
         state.get_opacity(),
         state.get_refl(),
@@ -160,6 +192,7 @@ def render(
         alive=state.alive,
         mesh=mesh,
         mesh_axis=mesh_axis,
+        **_family(state, scales, camera),
     )
     with stage("surface"):
         allmap = out.others
@@ -218,9 +251,10 @@ def render_fast(
     env scoping. collect_weights=False also drops the per-Gaussian max blend
     weight (a densify-only stat); gaussian_weights is then zeros. Runs on
     the device the state lives on."""
+    scales = state.get_scaling()
     out = rasterize(
         state.xyz,
-        state.get_scaling(),
+        scales,
         state.rotation,
         state.get_opacity(),
         state.get_refl(),
@@ -232,6 +266,7 @@ def render_fast(
         scale_modifier=scaling_modifier,
         alive=state.alive,
         collect_weights=collect_weights,
+        **_family(state, scales, camera),
     )
     alpha = out.others[..., 1:2]
     normal_view = out.others[..., 2:5]

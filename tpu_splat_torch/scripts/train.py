@@ -10,6 +10,10 @@ capacity growth, checkpoints, PLY snapshots and cfg_args, all in files the
 JAX package reads, and the network viewer (one request served an
 iteration unless --disable_viewer).
 
+`--volumetric` trains volumetric 3DGS Gaussians (3DGS-DR: three scale axes,
+each Gaussian's normal its shortest axis) in place of 2DGS surfels; the
+PLY's `scale_2` column carries the third axis to the other CLIs.
+
 `--mesh tiles` splits each step's tile grid over several ranks, `--mesh dp`
 renders one camera per rank (`dp` views a step from the same epoch
 shuffle; cameras of mixed sizes are padded to one size and masked in the
@@ -72,6 +76,10 @@ def training(args, argv_namespace=None, device: str = "cuda"):
     if getattr(args, "color_sabotage", None) is False:
         opt.disable_color_sabotage = True
 
+    volumetric = bool(getattr(args, "volumetric", False))
+    if volumetric and getattr(args, "tight_culling", False):
+        raise SystemExit("--volumetric bins by the rect: drop --tight_culling")
+
     if rank0:
         os.makedirs(model.model_path, exist_ok=True)
         if argv_namespace is not None:
@@ -101,6 +109,7 @@ def training(args, argv_namespace=None, device: str = "cuda"):
         init_refl_value=1e-3,  # reference create_from_pcd local default
         cubemap_resolution=model.cubemap_resol,
         device=dev,
+        volumetric=volumetric,
     )
     if rank0:
         print(f"{len(pts)} points, capacity {capacity}, extent {scene.cameras_extent:.2f}")
@@ -369,7 +378,7 @@ def _train_rank(rank: int, args, device: str):
 def main(argv=None, device: str = "cuda"):
     """The JAX CLI's flags and defaults (tpu_splat/scripts/train.py:main);
     `device` is where the model trains (the tests pass "cpu")."""
-    from argparse import BooleanOptionalAction
+    from argparse import SUPPRESS, BooleanOptionalAction
 
     from tpu_splat_torch.config import build_parser
 
@@ -390,6 +399,11 @@ def main(argv=None, device: str = "cuda"):
         "--tight_culling", action="store_true",
         help="per-column 3-sigma-conic tile binning (PARITY.md D2): fewer "
         "instances on anisotropic scenes at higher binning cost",
+    )
+    parser.add_argument(
+        "--volumetric", action="store_true", default=SUPPRESS,
+        help="volumetric 3DGS Gaussians (three scale axes, 3DGS-DR's shortest-axis "
+        "normals) in place of 2DGS surfels; recorded in cfg_args only when given",
     )
     parser.add_argument(
         "--opacity_rect", action=BooleanOptionalAction, default=True,

@@ -33,8 +33,9 @@ Draws = Callable[[str, tuple], torch.Tensor]
 
 def generator_draws(generator: torch.Generator) -> Draws:
     """The events' draws from a CPU generator: "densify_eps" standard
-    normals [2, P, 2] for the split children, "color_noise" U(-0.4, 0.4)
-    shaped like features_dc."""
+    normals [2, P, k] for the split children (k scale axes: 2 for surfels,
+    3 for volumetric Gaussians), "color_noise" U(-0.4, 0.4) shaped like
+    features_dc."""
     def draw(name: str, shape: tuple) -> torch.Tensor:
         if name == "densify_eps":
             return torch.randn(shape, generator=generator)
@@ -103,7 +104,7 @@ def run_scheduled_events(
         )
         if iteration > opt_cfg.densify_from_iter and iteration % interval == 0:
             res = densify_and_prune(
-                g, opt, ts.stats, draws("densify_eps", (2, g.capacity, 2)).to(dev),
+                g, opt, ts.stats, draws("densify_eps", (2, g.capacity, g.scaling.shape[1])).to(dev),
                 grad_threshold=opt_cfg.densify_grad_threshold,
                 percent_dense=opt_cfg.percent_dense,
                 extent=cameras_extent,
