@@ -4,8 +4,10 @@ Port of tpu_splat/envmap/cubemap.py: dominant-axis face selection, the
 LEFT_TOP_AS_ORIGIN EdgeTable, the seamless filter baked into EdgeTable-padded
 faces, and the quad-texture gather. Texture layout [6, C, L, L] (face,
 channel, y, x), as the reference checkpoint format. The forward is a row
-gather, as in the JAX package. The seamless sample is differentiable in
-texture, fail value and direction: its texel gradient goes through the
+gather, as in the JAX package; the padding's index tables are built once
+per (L, device) and kept, so a sample makes no host round trip. The
+seamless sample is differentiable in texture, fail value and direction: its
+texel gradient goes through the
 `cubemap_tap_accumulate` kernel (kernels/cubemap_accum.py), its direction
 gradient through the tap-weight derivatives. The "bilinear" and "nearest"
 filters differentiate by autograd of their gathers. `resize_cubemap` and
@@ -254,53 +256,124 @@ class _Sample4Quad(torch.autograd.Function):
         return d_tex, d_kx, d_ky, None, None, None
 
 
-def _pad_faces(texture: torch.Tensor) -> torch.Tensor:
-    """[6, C, L, L] -> [6, C, L+2, L+2]: each 1-texel border is filled from
-    the adjacent face through the EdgeTable, and each corner pad is the mean
-    of its 3 valid neighbours. Plain bilinear on the padded face is then
-    exactly the reference's seamless filter (see the JAX `_pad_faces`)."""
-    L = texture.shape[-1]
-    y_idx = np.arange(L, dtype=np.int32)
+class _PadTables(NamedTuple):
+    """The EdgeTable padding of an L x L cubemap as index tables on a device.
+    Padded rows are `_tex_flat`'s rows of [6, C, L+2, L+2], texel rows its
+    rows of the texture [6, C, L, L]."""
+
+    rows: torch.Tensor  # [6*(L+2)^2] the texel row each padded row copies
+    corner_rows: torch.Tensor  # [24] the padded corner rows
+    corner_src: torch.Tensor  # [24*3] per corner: texel, pad e1's and e2's source
+    slots: torch.Tensor  # [6*L*L, 6] padded rows each texel reaches (6*(L+2)^2: none)
+    slot_div: torch.Tensor  # [6*L*L, 6] 3.0 where the slot is a corner, else 1.0
+
+
+_PAD_TABLES: dict[tuple[int, torch.device], _PadTables] = {}
+_PAD_TABLE_BUILDS = 0
+
+
+def pad_table_builds() -> int:
+    """How many padding tables were built: one per new (L, device) sampled."""
+    return _PAD_TABLE_BUILDS
+
+
+def _build_pad_tables(L: int, device: torch.device) -> _PadTables:
+    """Each 1-texel border row copies the adjacent face's texel through the
+    EdgeTable; each corner pad is the mean of its 3 valid neighbours (the
+    in-face corner texel and the sources of its two edge pads)."""
+    Lp = L + 2
+    y_idx = np.arange(L)
     # flag column in _EDGE_*: 0=left(u<0.5), 1=right, 2=top(v<0.5), 3=bottom
     specs = {
-        0: (np.zeros(L, np.int32), y_idx),
-        1: (np.full(L, L - 1, np.int32), y_idx),
-        2: (y_idx, np.zeros(L, np.int32)),
-        3: (y_idx, np.full(L, L - 1, np.int32)),
+        0: (np.zeros(L, np.int64), y_idx),
+        1: (np.full(L, L - 1), y_idx),
+        2: (y_idx, np.zeros(L, np.int64)),
+        3: (y_idx, np.full(L, L - 1)),
     }
-    pads = []
+    texel = lambda f, x, y: (f * L + y) * L + x
+    rows = np.empty((6, Lp, Lp), np.int64)
+    fs, ys, xs = np.meshgrid(np.arange(6), y_idx, y_idx, indexing="ij")
+    rows[:, 1:-1, 1:-1] = texel(fs, xs, ys)
+    corner_rows, corner_src = [], []
     for f in range(6):
-        face_pads = {}
+        pads = {}
         for flag, (xs, ys) in specs.items():
-            nf, nx, ny = (
-                torch.as_tensor(a, dtype=torch.long, device=texture.device)
-                for a in _edge_remap(
-                    np.full(L, f, np.int32), xs, ys, np.full(L, flag, np.int32), L
-                )
-            )
-            face_pads[flag] = texture[nf, :, ny, nx]  # [L, C]
-        pads.append(face_pads)
-
-    Lp = L + 2
-    P = torch.zeros(
-        texture.shape[:2] + (Lp, Lp), dtype=texture.dtype, device=texture.device
-    )
-    P[:, :, 1:-1, 1:-1] = texture
-    for f in range(6):
-        P[f, :, 1:-1, 0] = pads[f][0].T  # left column
-        P[f, :, 1:-1, Lp - 1] = pads[f][1].T
-        P[f, :, 0, 1:-1] = pads[f][2].T  # top row
-        P[f, :, Lp - 1, 1:-1] = pads[f][3].T
+            pads[flag] = texel(*_edge_remap(np.full(L, f), xs, ys, np.full(L, flag), L))
+        rows[f, 1:-1, 0] = pads[0]  # left column
+        rows[f, 1:-1, Lp - 1] = pads[1]
+        rows[f, 0, 1:-1] = pads[2]  # top row
+        rows[f, Lp - 1, 1:-1] = pads[3]
         for (cy, cx), (iy, ix), (e1, i1), (e2, i2) in (
             ((0, 0), (0, 0), (0, 0), (2, 0)),
             ((0, Lp - 1), (0, L - 1), (1, 0), (2, L - 1)),
             ((Lp - 1, 0), (L - 1, 0), (0, L - 1), (3, 0)),
             ((Lp - 1, Lp - 1), (L - 1, L - 1), (1, L - 1), (3, L - 1)),
         ):
-            P[f, :, cy, cx] = (
-                texture[f, :, iy, ix] + pads[f][e1][i1] + pads[f][e2][i2]
-            ) / 3.0
-    return P
+            rows[f, cy, cx] = texel(f, ix, iy)  # replaced by the corner mean
+            corner_rows.append((f * Lp + cy) * Lp + cx)
+            corner_src += [texel(f, ix, iy), pads[e1][i1], pads[e2][i2]]
+    rows, corner_rows, corner_src = rows.reshape(-1), np.array(corner_rows), np.array(corner_src)
+
+    # the transpose: each texel's padded rows in ascending order, at most 6
+    # (its own, two edge pads at a face's corner, three corner pads)
+    edge = np.ones(rows.size, bool)
+    edge[corner_rows] = False
+    slot = np.concatenate([np.flatnonzero(edge), np.repeat(corner_rows, 3)])
+    src = np.concatenate([rows[edge], corner_src])
+    div = np.concatenate([np.ones(edge.sum()), np.full(corner_src.size, 3.0)]).astype(np.float32)
+    order = np.lexsort((slot, src))
+    slot, src, div = slot[order], src[order], div[order]
+    k = np.arange(src.size) - np.searchsorted(src, src)
+    slots = np.full((6 * L * L, 6), rows.size, np.int64)
+    slot_div = np.ones((6 * L * L, 6), np.float32)
+    slots[src, k], slot_div[src, k] = slot, div
+    up = lambda a: torch.as_tensor(a, device=device)
+    return _PadTables(up(rows), up(corner_rows), up(corner_src), up(slots), up(slot_div))
+
+
+def _pad_tables(L: int, device: torch.device) -> _PadTables:
+    """The tables of (L, device), built at the first sample there."""
+    global _PAD_TABLE_BUILDS
+    tables = _PAD_TABLES.get((L, device))
+    if tables is None:
+        tables = _PAD_TABLES[L, device] = _build_pad_tables(L, device)
+        _PAD_TABLE_BUILDS += 1
+    return tables
+
+
+class _PadFaces(torch.autograd.Function):
+    """Texel rows [6*L*L, C] -> padded rows [6*(L+2)^2, C]: one row gather,
+    then the 24 corner means. The backward sums each texel's padded rows,
+    the corner rows divided by 3, in a fixed order: no atomics, so the same
+    bits on every run."""
+
+    @staticmethod
+    def forward(ctx, tex_flat, tables):
+        C = tex_flat.shape[1]
+        P = tex_flat.index_select(0, tables.rows)
+        texel, e1, e2 = tex_flat.index_select(0, tables.corner_src).view(-1, 3, C).unbind(1)
+        P.index_copy_(0, tables.corner_rows, (texel + e1 + e2) / 3.0)
+        ctx.tables = tables
+        return P
+
+    @staticmethod
+    def backward(ctx, g):
+        t = ctx.tables
+        n, C = t.slots.shape[0], g.shape[1]
+        g_ext = torch.cat([g, g.new_zeros((1, C))])
+        taps = g_ext.index_select(0, t.slots.view(-1)).view(n, 6, C)
+        return (taps / t.slot_div[..., None]).sum(dim=1), None
+
+
+def _pad_faces(texture: torch.Tensor) -> torch.Tensor:
+    """[6, C, L, L] -> [6, C, L+2, L+2]: each 1-texel border is filled from
+    the adjacent face through the EdgeTable, and each corner pad is the mean
+    of its 3 valid neighbours. Plain bilinear on the padded face is then
+    exactly the reference's seamless filter (see the JAX `_pad_faces`). The
+    result is a view of padded rows, so `_tex_flat` of it copies nothing."""
+    L, C = texture.shape[-1], texture.shape[1]
+    P = _PadFaces.apply(_tex_flat(texture), _pad_tables(L, texture.device))
+    return P.view(6, L + 2, L + 2, C).permute(0, 3, 1, 2)
 
 
 def _tex_flat(texture: torch.Tensor) -> torch.Tensor:
